@@ -1,0 +1,281 @@
+"""BN254 Fr / Fq vector arithmetic on 8 x 32-bit limbs (kernel K1).
+
+Layout: a field vector is an (8, n) int32 tensor, limb-major, least
+significant limb first, read as uint32 by the kernels. Leading dimensions
+are batches: an Fq2 vector is (2, 8, n), a batch of B polynomials
+(B, 8, n); the limb axis is always dim -2. Values are canonical (< p) and
+in Montgomery form with R = 2^256, the snarkjs on-disk radix, so zkey
+coefficients and points upload with only a transpose of their (n, 8)
+words. (The JAX package's layout is (16, n) 16-bit limbs; the tests
+convert through `from_jax_limbs`/`to_jax_limbs`.)
+
+`mont_mul`, `add_mod`, `sub_mod` and `neg_mod` launch `csrc/field_vec.cu`
+for CUDA tensors and run the plain version `field_op_plain` for CPU
+tensors only. The plain version works on 16-bit limbs held in int64
+(torch on the CPU has no uint32 add or shift), and gives the kernel's
+canonical results exactly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..refmath.field import Q as _Q, R_MOD as _R
+
+NLIMB = 8
+MASK16 = 0xFFFF
+
+OP_MUL, OP_ADD, OP_SUB, OP_NEG = 0, 1, 2, 3
+
+
+@dataclass(frozen=True)
+class FieldSpec:
+    """Field parameters for both limb widths (32-bit for the kernels,
+    16-bit for the plain version)."""
+
+    modulus: int
+    name: str
+    field_id: int  # the kernels' field selector: 0 = Fr, 1 = Fq
+    n0inv: int = field(init=False)     # -p^-1 mod 2^32
+    n0inv16: int = field(init=False)   # -p^-1 mod 2^16
+    r_mod: int = field(init=False)     # R mod p (Montgomery 1)
+    r2: int = field(init=False)        # R^2 mod p
+    rinv: int = field(init=False)      # R^-1 mod p
+
+    def __post_init__(self):
+        p = self.modulus
+        object.__setattr__(self, "n0inv", (-pow(p, -1, 1 << 32)) % (1 << 32))
+        object.__setattr__(self, "n0inv16", (-pow(p, -1, 1 << 16)) % (1 << 16))
+        object.__setattr__(self, "r_mod", (1 << 256) % p)
+        object.__setattr__(self, "r2", (1 << 512) % p)
+        object.__setattr__(self, "rinv", pow(1 << 256, -1, p))
+
+    def p16(self, device) -> torch.Tensor:
+        """(16, 1) int64 16-bit limbs of p."""
+        return torch.tensor(
+            [(self.modulus >> (16 * i)) & MASK16 for i in range(16)],
+            dtype=torch.int64, device=device,
+        ).reshape(16, 1)
+
+
+FR_SPEC = FieldSpec(modulus=_R, name="bn254_fr", field_id=0)
+FQ_SPEC = FieldSpec(modulus=_Q, name="bn254_fq", field_id=1)
+
+
+# ------------------------------------------------------------ conversions
+
+def ints_to_words(vals) -> np.ndarray:
+    """Iterable of ints (< 2^256) -> (n, 8) uint32 words (snarkjs layout)."""
+    vals = list(vals)
+    raw = b"".join(int(v).to_bytes(32, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u4").reshape(len(vals), NLIMB)
+
+
+def words_to_limbs(words: np.ndarray, device="cpu") -> torch.Tensor:
+    """(n, 8) uint32 words -> (8, n) int32 limb tensor on `device`."""
+    w = np.array(np.asarray(words, dtype=np.uint32).T, order="C").view(np.int32)
+    return torch.from_numpy(w).to(device)
+
+
+def ints_to_limbs(vals, device="cpu") -> torch.Tensor:
+    """Iterable of ints -> (8, n) int32 limb tensor."""
+    return words_to_limbs(ints_to_words(vals), device)
+
+
+def limbs_to_words(t: torch.Tensor) -> np.ndarray:
+    """(8, n) limb tensor -> (n, 8) uint32 words (host)."""
+    return np.ascontiguousarray(t.detach().cpu().numpy().view(np.uint32).T)
+
+
+def limbs_to_ints(t: torch.Tensor) -> list:
+    """(8, n) limb tensor -> list of Python ints."""
+    raw = limbs_to_words(t).astype("<u4").tobytes()
+    return [int.from_bytes(raw[32 * i: 32 * (i + 1)], "little") for i in range(len(raw) // 32)]
+
+
+def from_jax_limbs(arr) -> np.ndarray:
+    """JAX (16, ...) 16-bit limb array -> (8, ...) int32 (limb axis 0)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    return np.ascontiguousarray(a[0::2] | (a[1::2] << np.uint32(16))).view(np.int32)
+
+
+def to_jax_limbs(t) -> np.ndarray:
+    """(8, ...) int32 limbs (limb axis 0) -> JAX's (16, ...) uint32 layout."""
+    a = np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t)
+    a = a.view(np.uint32)
+    out = np.empty((2 * a.shape[0],) + a.shape[1:], np.uint32)
+    out[0::2] = a & np.uint32(0xFFFF)
+    out[1::2] = a >> np.uint32(16)
+    return out
+
+
+def const(value: int, device, lanes: int = 1) -> torch.Tensor:
+    """(8, lanes) int32 tensor holding `value` (as given: no Montgomery
+    conversion) in every lane."""
+    return ints_to_limbs([value], device).expand(NLIMB, lanes).contiguous()
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """(..., 8, n) -> (..., n) bool."""
+    return (a == 0).all(dim=-2)
+
+
+# ------------------------------------------------- plain version (16-bit)
+
+def _to16(x: torch.Tensor) -> torch.Tensor:
+    """(..., 8, n) int32 -> (..., 16, n) int64 16-bit limbs."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([v & MASK16, v >> 16], dim=-2).reshape(
+        x.shape[:-2] + (16, x.shape[-1]))
+
+
+def _from16(l: torch.Tensor) -> torch.Tensor:
+    """(..., 16, n) int64 16-bit limbs -> (..., 8, n) int32 (two's
+    complement of the uint32 words)."""
+    w = l[..., 0::2, :] | (l[..., 1::2, :] << 16)
+    return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
+
+
+def _normalize(cols: torch.Tensor) -> torch.Tensor:
+    """Propagate carries (or borrows) along the limb axis; the top limb
+    keeps the final carry (negative for a final borrow)."""
+    cols = cols.clone()
+    # all columns at once, until no carry is left (a few rounds for lazy
+    # columns; at most one per limb for a ripple through 0xffff limbs)
+    while True:
+        carry = cols[..., :-1, :] >> 16
+        if not bool(carry.any()):
+            return cols
+        cols[..., :-1, :] &= MASK16
+        cols[..., 1:, :] += carry
+
+
+def _cond_sub_p16(l: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """l (..., >=16, n) normalized limbs of a value < 2p -> canonical 16 limbs."""
+    top = l[..., 16:, :].sum(dim=-2) if l.shape[-2] > 16 else None
+    d = _normalize(torch.cat([l[..., :16, :] - spec.p16(l.device),
+                              torch.zeros_like(l[..., :1, :])], dim=-2))
+    ge = d[..., 16, :] >= 0
+    if top is not None:
+        ge = ge | (top > 0)
+    return torch.where(ge.unsqueeze(-2), d[..., :16, :], l[..., :16, :])
+
+
+def _mont_mul16(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """CIOS Montgomery product a*b*2^-256 mod p on 16-bit limbs, with lazy
+    int64 columns (each stays below 2^38)."""
+    p = spec.p16(a.device)
+    n0 = spec.n0inv16
+    acc = torch.zeros(a.shape[:-2] + (33, a.shape[-1]), dtype=torch.int64, device=a.device)
+    for i in range(16):
+        acc[..., i:i + 16, :] += a[..., i:i + 1, :] * b
+        m = ((acc[..., i, :] & MASK16) * n0) & MASK16
+        acc[..., i:i + 16, :] += m.unsqueeze(-2) * p
+        acc[..., i + 1, :] += acc[..., i, :] >> 16
+    return _cond_sub_p16(_normalize(acc[..., 16:, :]), spec)
+
+
+def _add16(a, b, spec):
+    s = torch.cat([a + b, torch.zeros_like(a[..., :1, :])], dim=-2)
+    return _cond_sub_p16(_normalize(s), spec)
+
+
+def _sub16(a, b, spec):
+    d = _normalize(torch.cat([a - b, torch.zeros_like(a[..., :1, :])], dim=-2))
+    under = (d[..., 16, :] < 0).to(torch.int64).unsqueeze(-2)
+    fixed = d[..., :16, :] + under * spec.p16(a.device)
+    # (a - b + 2^256) + p: drop the 2^256 carried out of the top limb
+    return _normalize(torch.cat([fixed, torch.zeros_like(fixed[..., :1, :])], dim=-2))[..., :16, :]
+
+
+def _neg16(a, spec):
+    z = (a == 0).all(dim=-2, keepdim=True)
+    return torch.where(z, a, _sub16(torch.zeros_like(a), a, spec))
+
+
+def _broadcast_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Expand b (nbb, 8, m) to a's (nb, 8, n) by the kernel's rule: block
+    bb % nbb, lane i % m."""
+    nb = a.numel() // (NLIMB * a.shape[-1])
+    nbb = b.numel() // (NLIMB * b.shape[-1])
+    b3 = b.reshape(nbb, NLIMB, b.shape[-1])
+    b3 = b3.repeat(nb // nbb, 1, a.shape[-1] // b.shape[-1])
+    return b3.reshape(a.shape)
+
+
+def field_op_plain(op: int, a: torch.Tensor, b: torch.Tensor | None,
+                   spec: FieldSpec) -> torch.Tensor:
+    """The plain PyTorch version of K1, on any device."""
+    a16 = _to16(a)
+    if op == OP_NEG:
+        return _from16(_neg16(a16, spec))
+    b16 = _to16(_broadcast_b(a, b))
+    if op == OP_MUL:
+        r = _mont_mul16(a16, b16, spec)
+    elif op == OP_ADD:
+        r = _add16(a16, b16, spec)
+    elif op == OP_SUB:
+        r = _sub16(a16, b16, spec)
+    else:
+        raise ValueError(f"unknown field op {op}")
+    return _from16(r)
+
+
+# ------------------------------------------------------------ K1 wrapper
+
+def _check(t: torch.Tensor, what: str):
+    if t.dtype != torch.int32 or t.dim() < 2 or t.shape[-2] != NLIMB:
+        raise ValueError(f"{what}: want int32 (..., 8, n), got {t.dtype} {tuple(t.shape)}")
+
+
+def field_op(op: int, a: torch.Tensor, b: torch.Tensor | None,
+             spec: FieldSpec) -> torch.Tensor:
+    """Elementwise field op; b broadcasts as (nbb, 8, m) blocks/lanes."""
+    _check(a, "a")
+    if b is not None:
+        _check(b, "b")
+        nb, n = a.numel() // (NLIMB * a.shape[-1]), a.shape[-1]
+        nbb, m = b.numel() // (NLIMB * b.shape[-1]), b.shape[-1]
+        if nbb == 0 or m == 0 or nb % nbb or n % m or b.device != a.device:
+            raise ValueError(
+                f"b {tuple(b.shape)} does not broadcast onto a {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return field_op_plain(op, a, b, spec)
+    if a.device.type != "cuda":
+        raise RuntimeError(f"field_op: unsupported device {a.device}")
+    a = a.contiguous()
+    b = a if b is None else b.contiguous()
+    out = torch.empty_like(a)
+    kernels.FIELD_VEC.launch(
+        op, spec.field_id, out.data_ptr(), a.data_ptr(), b.data_ptr(),
+        a.numel() // (NLIMB * a.shape[-1]), a.shape[-1],
+        b.numel() // (NLIMB * b.shape[-1]), b.shape[-1],
+    )
+    return out
+
+
+def mont_mul(a, b, spec: FieldSpec):
+    """a * b * R^-1 mod p (Montgomery product)."""
+    return field_op(OP_MUL, a, b, spec)
+
+
+def add_mod(a, b, spec: FieldSpec):
+    return field_op(OP_ADD, a, b, spec)
+
+
+def sub_mod(a, b, spec: FieldSpec):
+    return field_op(OP_SUB, a, b, spec)
+
+
+def neg_mod(a, spec: FieldSpec):
+    """-a mod p; 0 stays 0."""
+    return field_op(OP_NEG, a, None, spec)
+
+
+def to_mont(a, spec: FieldSpec):
+    """Standard form -> Montgomery form: a * R mod p."""
+    return mont_mul(a, const(spec.r2, a.device), spec)

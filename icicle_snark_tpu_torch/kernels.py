@@ -1,0 +1,168 @@
+"""Build, load and count the port's CUDA kernels.
+
+Every `csrc/*.cu` is compiled by `nvcc` for `sm_90a` (one process per
+source, all started together), then linked into one shared library with a
+plain C interface that `ctypes` loads. The build happens at first use,
+into `build/torch_kernels/` beside the package, keyed by a hash of the
+sources; importing this module builds nothing.
+
+Each kernel is a `Kernel` object: `launch(...)` calls the C entry on the
+current CUDA stream, raises if it returns a CUDA error, and adds one to
+`launches`. Wrappers call `launch` only for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+]
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+
+
+def _sources() -> list:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels (if the sources changed) and return the library path."""
+    h = hashlib.sha256()
+    for path in _sources():
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + fh.read())
+    tag = h.hexdigest()[:16]
+    lib_path = os.path.join(BUILD_DIR, f"libsnark_kernels_{tag}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    units = [p for p in _sources() if p.endswith(".cu")]
+    objs, procs = [], []
+    for src in units:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj]
+        procs.append((src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if verbose or proc.returncode:
+            print(f"[nvcc {os.path.basename(src)}]\n{out}", flush=True)
+        if proc.returncode:
+            failed.append(os.path.basename(src))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}")
+    tmp = lib_path + f".tmp{os.getpid()}"
+    subprocess.run([nvcc, NVCC_FLAGS[0], "-shared", *objs, "-o", tmp], check=True)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(build())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _LIB = handle
+    return _LIB
+
+
+_SIGNATURES = {
+    # op, field, out, a, b, nb, n, nbb, m, stream
+    "snark_field_vec": [_I, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
+    # out, coefs, widx, offsets, witness, nnz, n_slots, n_vars, stream
+    "snark_r1cs_reduce": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP],
+    # x, tw, scale, batch, n, m, inverse, stream
+    "snark_ntt_stage": [_VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
+    # g2, buckets, px, py, order, negs, ends, total, windows, groups, half, stream
+    "snark_msm_accumulate": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
+    # g2, out, partial, buckets, windows, groups, half, seg, nbits, stream
+    "snark_msm_reduce": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
+}
+
+
+class Kernel:
+    """One C entry of the library, with its launch count."""
+
+    def __init__(self, name: str, entry: str, source: str, replaces: str):
+        self.name = name
+        self.entry = entry
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, *args):
+        import torch
+
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib(), self.entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+FIELD_VEC = Kernel(
+    "field_vec", "snark_field_vec", "icicle_snark_tpu_torch/csrc/field_vec.cu",
+    "icicle_snark_tpu/fields/limbs.py:375",
+)
+R1CS = Kernel(
+    "r1cs_reduce", "snark_r1cs_reduce", "icicle_snark_tpu_torch/csrc/r1cs.cu",
+    "icicle_snark_tpu/prover/pipeline.py:55",
+)
+NTT = Kernel(
+    "ntt_stage", "snark_ntt_stage", "icicle_snark_tpu_torch/csrc/ntt.cu",
+    "icicle_snark_tpu/ops/ntt.py:180",
+)
+MSM_ACCUMULATE = Kernel(
+    "msm_accumulate", "snark_msm_accumulate", "icicle_snark_tpu_torch/csrc/msm.cu",
+    "icicle_snark_tpu/ops/msm.py:609",
+)
+MSM_REDUCE = Kernel(
+    "msm_reduce", "snark_msm_reduce", "icicle_snark_tpu_torch/csrc/msm.cu",
+    "icicle_snark_tpu/ops/msm.py:701",
+)
+ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE)
+
+
+def reset_counts():
+    for k in ALL:
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {k.name: k.launches for k in ALL}

@@ -1,0 +1,144 @@
+"""Device-resident proving-key cache.
+
+The analog of the reference's ZKeyCache/CacheManager (src/cache.rs) and of
+icicle_snark_tpu/prover/cache.py: parse the zkey once, upload the MSM bases
+and the coefficient table, build the R1CS plan and the coset key powers.
+
+  * Points and coefficients stay in Montgomery form (R = 2^256 is the
+    snarkjs radix): the (n, 8) words upload with a transpose only.
+  * The R1CS plan is CSR: records sorted by output slot (torch.sort),
+    per-slot counts (bincount) and row offsets (cumsum). Kernel K2 reduces
+    each row mod r term by term, so one level serves every fan-in.
+  * Precompute factor 1: the MSM bases are the zkey's points as they are.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from ..fields.limbs import words_to_limbs
+from ..io.zkey import ZKeyFile, ZKeyHeader
+from ..ops import msm as msm_ops
+from ..ops.ntt import NTTDomain, powers_mont
+from ..refmath.field import W
+
+
+def require_device(device) -> torch.device:
+    """The device the caller asked for; raises when it is CUDA and no card
+    is present (entry points never fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the plain versions")
+    return dev
+
+
+@dataclass
+class R1CSPlan:
+    """CSR plan for out[m*n + c] += coef * witness[s] (A rows, then B rows)."""
+
+    witness_idx: torch.Tensor  # (nnz,) int32, sorted by output slot
+    coefs: torch.Tensor        # (8, nnz) int32 Montgomery limbs
+    offsets: torch.Tensor      # (num_slots + 1,) int32 row offsets
+    num_slots: int             # 2 * domain_size
+
+
+@dataclass
+class ZKeyCache:
+    header: ZKeyHeader
+    plan: R1CSPlan
+    points_a: tuple    # (x, y): each (8, n_vars) Montgomery affine
+    points_b1: tuple
+    points_b2: tuple   # (x, y): each (2, 8, n_vars)
+    points_c: tuple
+    points_h: tuple
+    keys: torch.Tensor  # (8, n) Montgomery coset key powers, NATURAL order
+    domain: NTTDomain
+    msm_c: int = 0     # G1 grouped window size
+    msm_c2: int = 0    # G2 window size
+    g1_points: tuple = field(init=False)  # A|B1|C|H concatenated (x, y)
+
+    def __post_init__(self):
+        groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
+        self.g1_points = tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2))
+        self.g1_sizes = [g[0].shape[-1] for g in groups]
+        self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), groups=4)
+        self.msm_c2 = self.msm_c2 or msm_ops.choose_c(self.points_b2[0].shape[-1], groups=1)
+
+
+def build_r1cs_plan(slots: torch.Tensor, witness_idx: torch.Tensor,
+                    coefs: torch.Tensor, domain_size: int) -> R1CSPlan:
+    """CSR plan from unsorted records: slots (nnz,) int64 in [0, 2n),
+    witness_idx (nnz,), coefs (8, nnz) int32, all on the target device."""
+    num_slots = 2 * domain_size
+    if slots.numel() and (int(slots.min()) < 0 or int(slots.max()) >= num_slots):
+        raise ValueError("coefficient record outside the 2 x domain slots")
+    slot_sorted, order = torch.sort(slots, stable=True)
+    counts = torch.bincount(slot_sorted, minlength=num_slots)
+    offsets = torch.zeros(num_slots + 1, dtype=torch.int64, device=slots.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return R1CSPlan(
+        witness_idx=witness_idx[order].to(torch.int32).contiguous(),
+        coefs=coefs[:, order].contiguous(),
+        offsets=offsets.to(torch.int32),
+        num_slots=num_slots,
+    )
+
+
+def _g1(words, dev) -> tuple:
+    """(n, 16) u32 affine words -> ((8, n), (8, n))."""
+    return (words_to_limbs(words[:, :8], dev), words_to_limbs(words[:, 8:16], dev))
+
+
+def _g2(words, dev) -> tuple:
+    """(n, 32) u32 -> ((2, 8, n), (2, 8, n))."""
+    x = torch.stack([words_to_limbs(words[:, 0:8], dev), words_to_limbs(words[:, 8:16], dev)])
+    y = torch.stack([words_to_limbs(words[:, 16:24], dev), words_to_limbs(words[:, 24:32], dev)])
+    return (x, y)
+
+
+def load_zkey_cache(zkey_path: str, device="cuda") -> ZKeyCache:
+    dev = require_device(device)
+    zk = ZKeyFile(zkey_path)
+    hdr = zk.header
+    n = hdr.domain_size
+
+    m_arr, c_arr, s_arr, coef_words = zk.coefficients()
+    slots = (torch.from_numpy(m_arr.astype("int64")) * n
+             + torch.from_numpy(c_arr.astype("int64"))).to(dev)
+    plan = build_r1cs_plan(
+        slots, torch.from_numpy(s_arr.astype("int64")).to(dev),
+        words_to_limbs(coef_words, dev), n,
+    )
+    # coset generator g with g^n = -1 (reference cache.rs:168)
+    keys = powers_mont(W[hdr.power + 1], hdr.power, dev)
+    return ZKeyCache(
+        header=hdr,
+        plan=plan,
+        points_a=_g1(zk.points_a(), dev),
+        points_b1=_g1(zk.points_b1(), dev),
+        points_b2=_g2(zk.points_b2(), dev),
+        points_c=_g1(zk.points_c(), dev),
+        points_h=_g1(zk.points_h(), dev),
+        keys=keys,
+        domain=NTTDomain(hdr.power, dev),
+    )
+
+
+class CacheManager:
+    """Keyed zkey cache surviving across prove calls (reference:
+    CacheManager, src/cache.rs:110-262), for one device."""
+
+    def __init__(self, device="cuda"):
+        self.device = require_device(device)
+        self._caches: dict = {}
+
+    def contains(self, zkey_path: str) -> bool:
+        return zkey_path in self._caches
+
+    def get(self, zkey_path: str) -> ZKeyCache:
+        if zkey_path not in self._caches:
+            self._caches[zkey_path] = load_zkey_cache(zkey_path, self.device)
+        return self._caches[zkey_path]

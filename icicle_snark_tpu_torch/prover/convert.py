@@ -1,0 +1,65 @@
+"""Build the port's ZKeyCache from the JAX package's cache state.
+
+Takes the fields of an icicle_snark_tpu ZKeyCache as numpy arrays (its
+(16, n) 16-bit limb layout) so both packages can run on identical state.
+Imports nothing of the JAX package: the caller converts its arrays with
+np.asarray.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields.limbs import from_jax_limbs
+from ..ops.ntt import NTTDomain
+from .cache import ZKeyCache, build_r1cs_plan
+
+
+def _t(arr: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def _g1(pt, dev) -> tuple:
+    return tuple(_t(from_jax_limbs(c), dev) for c in pt)
+
+
+def _g2(pt, dev) -> tuple:
+    # JAX (16, 2, n) -> (8, 2, n) -> the port's (2, 8, n)
+    return tuple(_t(from_jax_limbs(c).transpose(1, 0, 2), dev) for c in pt)
+
+
+def cache_from_jax_arrays(header, *, coefs, witness_idx, segments, level2,
+                          points_a, points_b1, points_b2, points_c, points_h,
+                          keys, msm_pre: int = 1, msm_pre2: int = 1,
+                          device="cpu") -> ZKeyCache:
+    """header: the zkey header (either package's ZKeyHeader; fields are
+    read by name). coefs (16, nnz); witness_idx, segments (nnz,); level2
+    None or (segments2, num_segments2); points as JAX affine (x, y); keys
+    (16, n) natural-order coset powers. Raises for precompute factor > 1
+    (the port's bases are the zkey points as they are)."""
+    if msm_pre != 1 or msm_pre2 != 1:
+        raise ValueError(
+            f"JAX cache built with precompute factor {msm_pre}/{msm_pre2}: the port takes 1")
+    dev = torch.device(device)
+    n = header.domain_size
+    seg = np.asarray(segments).astype(np.int64)
+    slots = np.asarray(level2[0]).astype(np.int64)[seg] if level2 is not None else seg
+    real = slots < 2 * n  # drop the plan's padding records (slot 2n)
+    plan = build_r1cs_plan(
+        _t(slots[real], dev),
+        _t(np.asarray(witness_idx).astype(np.int64)[real], dev),
+        _t(from_jax_limbs(coefs)[:, real], dev),
+        n,
+    )
+    return ZKeyCache(
+        header=header,
+        plan=plan,
+        points_a=_g1(points_a, dev),
+        points_b1=_g1(points_b1, dev),
+        points_b2=_g2(points_b2, dev),
+        points_c=_g1(points_c, dev),
+        points_h=_g1(points_h, dev),
+        keys=_t(from_jax_limbs(keys), dev),
+        domain=NTTDomain(header.power, dev),
+    )

@@ -1,0 +1,197 @@
+"""The Groth16 prove pipeline on the GPU (kernels K1-K4).
+
+Mirrors the reference's value flow (src/proof_helper.rs:31-317) and the
+JAX package's pipeline (icicle_snark_tpu/prover/pipeline.py), so proofs are
+byte-identical:
+
+  stage                here                                      kernel
+  -------------------  ----------------------------------------  ------
+  witness ingest       (n, 8) words -> (8, n) limbs (transpose)  -
+  R1CS evaluation      CSR rows: sum_j coef*w mod r, then REDC   K2
+  A*B -> C             Montgomery product                        K1
+  coset evaluation     bit-reversed INTT, key powers, NTT        K3, K1
+  h values             (A*B - C) on the coset, times R^2         K1
+  5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2)        K4
+  randomization        host projective ops (refmath)             -
+  serialization        decimal strings                           -
+
+Montgomery bookkeeping (R = 2^256, the snarkjs on-disk radix):
+  coef_disk = c*R, witness = w (standard)
+  mont_mul(coef_disk, w)     = c*w                     == res*R, res per reference
+  a_vals = REDC(sum c*w)     = sum(res)                (standard: the oracle's)
+  c_vals = mont_mul(a, b)    = a*b*R^-1                (carries R^-1)
+  coset  = mont_mul(x, key*R) = x*key                  (factors preserved)
+  h_raw  = mont_mul(A_odd, B_odd) - C_odd              == h*R^-1
+  h      = mont_mul(h_raw, R^2)                        (the H MSM scalar integers)
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .. import kernels
+from ..fields import limbs as lb
+from ..fields.limbs import FR_SPEC, MASK16, NLIMB
+from ..io.wtns import WtnsFile
+from ..ops import msm as msm_ops
+from ..ops import ntt as ntt_ops
+from ..refmath import curve as cv
+from ..refmath.field import MONT_R_FR, R_MOD
+from ..refmath.groth16 import serialize_proof
+from .cache import R1CSPlan, ZKeyCache
+
+_R2_FR = MONT_R_FR * MONT_R_FR % R_MOD
+
+
+# ---------------------------------------------------------------- K2
+
+def _redc_wide16(cols: torch.Tensor) -> torch.Tensor:
+    """X * R^-1 mod r for lazy (16, n) int64 columns of X < R*r (16-bit
+    limbs), canonical 16-bit limbs out."""
+    p = FR_SPEC.p16(cols.device)
+    n0 = FR_SPEC.n0inv16
+    acc = torch.zeros((33, cols.shape[-1]), dtype=torch.int64, device=cols.device)
+    acc[:16] = cols
+    for i in range(16):
+        m = ((acc[i] & MASK16) * n0) & MASK16
+        acc[i:i + 16] += m.unsqueeze(0) * p
+        acc[i + 1] += acc[i] >> 16
+    return lb._cond_sub_p16(lb._normalize(acc[16:]), FR_SPEC)
+
+
+def r1cs_reduce_plain(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
+    """Plain version of K2: per slot, sum of mont_mul(coef, w[idx]) mod r
+    times R^-1, as (8, num_slots)."""
+    prod = lb.field_op_plain(lb.OP_MUL, plan.coefs, witness[:, plan.witness_idx.long()], FR_SPEC)
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    slot = torch.repeat_interleave(torch.arange(plan.num_slots, device=witness.device), counts)
+    cols = torch.zeros((16, plan.num_slots), dtype=torch.int64, device=witness.device)
+    cols.index_add_(1, slot, lb._to16(prod))
+    return lb._from16(_redc_wide16(cols))
+
+
+def r1cs_reduce(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
+    """A and B evaluations: (8, n_vars) standard witness -> (8, 2n)
+    (slots [0, n) = A, [n, 2n) = B), standard form."""
+    if witness.dtype != torch.int32 or witness.dim() != 2 or witness.shape[0] != NLIMB:
+        raise ValueError(f"r1cs_reduce: want int32 (8, n_vars), got {tuple(witness.shape)}")
+    if witness.device.type == "cpu":
+        return r1cs_reduce_plain(witness, plan)
+    if witness.device.type != "cuda":
+        raise RuntimeError(f"r1cs_reduce: unsupported device {witness.device}")
+    witness = witness.contiguous()
+    out = torch.empty((NLIMB, plan.num_slots), dtype=torch.int32, device=witness.device)
+    kernels.R1CS.launch(
+        out.data_ptr(), plan.coefs.data_ptr(), plan.witness_idx.data_ptr(),
+        plan.offsets.data_ptr(), witness.data_ptr(), plan.coefs.shape[-1],
+        plan.num_slots, witness.shape[-1],
+    )
+    return out
+
+
+# ---------------------------------------------------------------- stages
+
+def construct_r1cs(witness: torch.Tensor, cache: ZKeyCache) -> torch.Tensor:
+    """(8, n_vars) standard witness -> (8, n) standard h scalars
+    (reference: construct_r1cs, proof_helper.rs:31-170)."""
+    n = cache.header.domain_size
+    dom = cache.domain
+    ab = r1cs_reduce(witness, cache.plan)
+    a_vals, b_vals = ab[:, :n], ab[:, n:]
+    c_vals = lb.mont_mul(a_vals, b_vals, FR_SPEC)  # carries R^-1
+    vec = torch.stack([a_vals, b_vals, c_vals])  # (3, 8, n)
+    coeffs_br = ntt_ops.intt_dif(vec, dom)
+    shifted = lb.mont_mul(coeffs_br, cache.keys[:, dom.bitrev], FR_SPEC)
+    odd = ntt_ops.ntt_dit(shifted, dom)
+    h_raw = lb.sub_mod(lb.mont_mul(odd[0], odd[1], FR_SPEC), odd[2], FR_SPEC)
+    return lb.mont_mul(h_raw, lb.const(_R2_FR, witness.device), FR_SPEC)
+
+
+def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: ZKeyCache):
+    """The 5 MSMs (reference: groth16_commitments, proof_helper.rs:172-241),
+    as host projective points (standard-form ints):
+      pi_a = <w, A>, pi_b1 = <w, B1>, pi_b = <w, B2> (G2),
+      pi_c = <w[npub+1:], C>, pi_h = <h, H>."""
+    npub = cache.header.n_public
+    scalars = torch.cat([witness, witness, witness[:, npub + 1:], h_scalars], dim=-1)
+    c, c2 = cache.msm_c, cache.msm_c2
+    ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_points, c)
+    ws2 = msm_ops.msm_window_sums(witness, [witness.shape[-1]], cache.points_b2, c2)
+    ws1_np, ws2_np = ws1.cpu().numpy(), ws2.cpu().numpy()
+    pi_a, pi_b1, pi_c, pi_h = (
+        msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1_np, g), c)
+        for g in range(4)
+    )
+    pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws2_np, 0), c2, g2=True)
+    return pi_a, pi_b1, pi_b, pi_c, pi_h
+
+
+class PhaseTimer:
+    """Per-phase wall times of a prove. On CUDA each mark synchronises the
+    device first, so a phase's time includes its kernels."""
+
+    def __init__(self, device=None):
+        self.sync = (torch.cuda.synchronize
+                     if device is not None and torch.device(device).type == "cuda" else None)
+        self.phases = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name: str):
+        if self.sync is not None:
+            self.sync()
+        now = time.perf_counter()
+        self.phases[name] = self.phases.get(name, 0.0) + (now - self._t)
+        self._t = now
+
+
+def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=None,
+          timer: PhaseTimer | None = None):
+    """Full prove from a witness file against a warm cache; returns
+    (proof_dict, public_signals). Randomization and assembly run on the
+    host (proof_helper.rs:274-295)."""
+    device = cache.keys.device
+    timer = timer or PhaseTimer(device)
+    hdr = cache.header
+    wtns = WtnsFile(wtns_path)
+    if wtns.header.q != hdr.r:
+        raise ValueError("witness curve does not match proving key")
+    if wtns.header.n_witness != hdr.n_vars:
+        raise ValueError(
+            f"invalid witness length: circuit {hdr.n_vars}, witness {wtns.header.n_witness}"
+        )
+    witness = lb.words_to_limbs(wtns.witness_limbs(), device)  # (8, n_vars) standard
+    timer.mark("witness_ingest")
+
+    h_scalars = construct_r1cs(witness, cache)
+    timer.mark("r1cs_ntt")
+    pi_a, pi_b1, pi_b, pi_c, pi_h = groth16_commitments(witness, h_scalars, cache)
+    timer.mark("msm")
+
+    alpha1 = cv.g1_from_affine(hdr.vk_alpha_1)
+    beta1 = cv.g1_from_affine(hdr.vk_beta_1)
+    delta1 = cv.g1_from_affine(hdr.vk_delta_1)
+    beta2 = cv.g2_from_affine(hdr.vk_beta_2)
+    delta2 = cv.g2_from_affine(hdr.vk_delta_2)
+
+    if deterministic:
+        r = s = 1  # reference `no-randomness` feature (proof_helper.rs:287-295)
+    else:
+        import secrets
+
+        r = (rng or secrets).randbelow(R_MOD)
+        s = (rng or secrets).randbelow(R_MOD)
+
+    pi_a = cv.g1_add(pi_a, cv.g1_add(alpha1, cv.g1_mul(delta1, r)))
+    pi_b = cv.g2_add(pi_b, cv.g2_add(beta2, cv.g2_mul(delta2, s)))
+    pi_b1 = cv.g1_add(pi_b1, cv.g1_add(beta1, cv.g1_mul(delta1, s)))
+    pi_c = cv.g1_add(pi_c, pi_h)
+    pi_c = cv.g1_add(pi_c, cv.g1_mul(pi_a, s))
+    pi_c = cv.g1_add(pi_c, cv.g1_mul(pi_b1, r))
+    pi_c = cv.g1_add(pi_c, cv.g1_neg(cv.g1_mul(delta1, r * s % R_MOD)))
+    timer.mark("randomize_assemble")
+
+    public_signals = [str(v) for v in wtns.witness_ints(1, hdr.n_public)]
+    timer.mark("serialize")
+    return serialize_proof(pi_a, pi_b, pi_c), public_signals
