@@ -1,29 +1,43 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # complex-100k, the full check
-    python3 chip_smoke.py --constraints 2000   # a quick rehearsal
+    python3 chip_smoke.py        # complex-100k and complex-1600k, the full check
+    python3 chip_smoke.py --constraints 2000 --large-constraints 20000   # a rehearsal
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
      and power limit;
-  2. make the complex-N fixture with the port's device setup (K1) and build
-     the proving-key cache;
+  2. make the complex-N fixture with the port's device setup (K1, K7) and
+     build the proving-key cache;
   3. hold every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs at the main path's shapes plus edge values
-     (0, 1, p-1; the identity, P+P, P+(-P)); time both with CUDA events;
+     (0, 1, p-1; the identity, P+P, P+(-P)); time both with CUDA events
+     (K1-K4, K7 at complex-N shapes, K4 at every lane of both MSMs; K5, K6
+     and K4 once more at the large circuit's shapes in phase 6; K8 at the
+     probe's);
   4. prove through the port's API: a cold first prove, three warm proves
      with per-phase times, a deterministic and a randomized proof that both
-     verify, and launch counts showing every kernel ran during one prove;
-  5. complex(40, 50): the port's device setup gives the host oracle's zkey
+     verify, and launch counts showing the kernels ran during one prove;
+  5. complex-N again with the JAX package's own MSM plan, G1 (13, 1) and
+     G2 (13, 4) precomputed bases: the deterministic proof equals phase 4's
+     byte for byte; the G1 and G2 MSMs timed at several (c, f);
+  6. complex-M, the large circuit (default 1 600 000 constraints, domain
+     2^21): device setup, cold cache, first prove, three warm proves, a
+     profiled prove; four deterministic proofs (default in-core route with
+     K5, NTT forced to K3, MSM forced into slices of 2^21 lanes with K6,
+     G2 bases precomputed with factor 2) that must be byte-identical; a
+     deterministic and a randomized proof verify;
+  7. the probe entry point (K8), every (op, W);
+  8. complex(40, 50): the port's device setup gives the host oracle's zkey
      byte for byte, and its deterministic proof (through the CLI worker on
      the card) equals the oracle's byte for byte;
-  6. print the kernels line, then the result line.
+  9. print the kernels line, then the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import filecmp
 import json
 import os
@@ -72,6 +86,20 @@ def cuda_time(fn, reps: int = 5, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def patched(*patches):
+    """Module constants set to other values for the duration of the block:
+    patches are (module, name, value)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, value in patches:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
 
 
 def max_word_err(a, b) -> float:
@@ -179,7 +207,14 @@ def check_ntt(rep, rng, cache, dev):
     x = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
 
     def kernel_pair():
-        return ntt.ntt_dit(ntt.intt_dif(x, dom), dom)
+        """K3 stage by stage (whatever route the domain size would pick)."""
+        y = x.clone()
+        for s in range(dom.log_n, 0, -1):
+            ntt.ntt_stage(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
+        inv = y.clone()
+        for s in range(1, dom.log_n + 1):
+            ntt.ntt_stage(y, dom.tw_fwd, 1 << s, False)
+        return inv, y
 
     def plain_pair():
         y = x.clone()
@@ -191,9 +226,8 @@ def check_ntt(rep, rng, cache, dev):
             y = ntt.ntt_stage_plain(y, dom.tw_fwd, 1 << s, False)
         return inv, y
 
-    inv_k = ntt.intt_dif(x, dom)
+    inv_k, fwd_k = kernel_pair()
     inv_p, fwd_p = plain_pair()
-    fwd_k = ntt.ntt_dit(inv_k, dom)
     err = max(max_word_err(inv_k, inv_p), max_word_err(fwd_k, fwd_p))
     roundtrip = bool((fwd_k == x).all())
     log(f"  ntt_stage (3, 8, 2^{dom.log_n}) intt+ntt: max word err {err}, roundtrip {roundtrip}")
@@ -266,9 +300,12 @@ def _points_err(ops, a, b):
     return 0.0 if same else max(max_word_err(a, b), 1.0)
 
 
-def check_msm(rep, rng, cache, dev, g2: bool):
-    """K4 accumulate and reduce against their plain versions: an edge-case
-    MSM, then the prove's own MSM shape (cache points, random scalars)."""
+def check_msm(rep, rng, cache, dev, g2: bool, large: bool = False):
+    """K4 accumulate and reduce against their plain versions at the prove's
+    own MSM shape: the cache's points at every lane, random scalars below
+    r, the cache's window size. The smaller circuit also runs an edge-case
+    MSM first; its row carries the times. With `large` the comparison and
+    the times go under the row's "large" key."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -283,30 +320,23 @@ def check_msm(rep, rng, cache, dev, g2: bool):
     else:
         sizes, points, c = cache.g1_sizes, cache.g1_points, cache.msm_c
     total = sum(sizes)
-    edge_sc, edge_pts = _edge_msm_inputs(rng, dev, g2)
-    cases = [
-        ("edge", edge_sc, [edge_sc.shape[-1]], edge_pts, 8),
-        ("main", random_field(rng, lb.FR_SPEC.modulus, (total,), dev), sizes, points, c),
-    ]
+    full_sc = random_field(rng, lb.FR_SPEC.modulus, (total,), dev)
+    cases = [("main", full_sc, sizes, points, c)]
+    if not large:
+        edge_sc, edge_pts = _edge_msm_inputs(rng, dev, g2)
+        cases.insert(0, ("edge", edge_sc, [edge_sc.shape[-1]], edge_pts, 8))
     ok = True
     for label, sc, szs, pts, cc in cases:
         half, groups = 1 << (cc - 1), len(szs)
         order, negs, ends = msm.sort_windows(sc, szs, cc)
         windows = order.shape[0]
-        t0 = time.perf_counter()
-        bk = msm.msm_accumulate(pts[0], pts[1], order, negs, ends, groups, half)
-        bp, acc_plain = timed_once(
-            lambda: msm.msm_accumulate_plain(pts[0], pts[1], order, negs, ends, groups, half))
-        acc_err = _points_err(ops, bk, bp)
-        wk = msm.msm_reduce(bp, windows, groups, half)
-        wp, red_plain = timed_once(lambda: msm.msm_reduce_plain(bp, windows, groups, half))
-        red_err = _points_err(ops, wk, wp)
-        log(f"  msm {tag} {label}: lanes {sc.shape[-1]}, c {cc}, W {windows}, G {groups}: "
-            f"accumulate err {acc_err} (bitwise equal {bool(torch.equal(bk, bp))}), reduce err "
-            f"{red_err} (bitwise equal {bool(torch.equal(wk, wp))}) [{time.perf_counter() - t0:.1f} s]")
+        acc_err, red_err, bp, acc_plain, red_plain = _msm_against_plain(
+            ops, pts, order, negs, ends, windows, groups, half, label, tag, sc, cc,
+            time.perf_counter())
         ok &= acc_err == 0 and red_err == 0
         if label != "main":
             continue
+
         acc_ms = cuda_time(
             lambda: msm.msm_accumulate(pts[0], pts[1], order, negs, ends, groups, half), 3)
         red_ms = cuda_time(lambda: msm.msm_reduce(bp, windows, groups, half), 3)
@@ -314,6 +344,7 @@ def check_msm(rep, rng, cache, dev, g2: bool):
         digits, _ = msm.window_digits_signed(sc, cc)
         zx, zy = (lb.is_zero(t).all(0) if g2 else lb.is_zero(t) for t in pts)
         madds = int(((digits != 0) & ~(zx & zy)).sum())
+        del digits
         words = 16 if g2 else 8
         nbk = windows * groups * half
         acc_bound = bound(total * 2 * words * 4 + windows * total * 5 + ends.numel() * 4
@@ -323,30 +354,355 @@ def check_msm(rep, rng, cache, dev, g2: bool):
         adds = windows * groups * 2 * (half - 1)
         red_bound = bound(nbk * 3 * words * 4 + windows * groups * 3 * words * 4,
                           adds * FQ_MULS[tag]["add"] * MULS_PER_MONT)
-        what = f"{tag}: {total} lanes, {windows} windows, c {cc}"
-        _accumulate_row(rep, kernels.MSM_ACCUMULATE.name, acc_err, acc_ms, acc_plain, acc_bound, what)
-        _accumulate_row(rep, kernels.MSM_REDUCE.name, red_err, red_ms, red_plain, red_bound, what)
+        runs = torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
+        runs = runs.reshape(windows, groups, half + 1)[..., 1:]  # digit 0 has no bucket
+        what = (f"{tag}: {total} lanes, {windows} windows, c {cc}, longest bucket run "
+                f"{int(runs.max())}; kernel and plain version on the same lanes")
+        _accumulate_row(rep, kernels.MSM_ACCUMULATE.name, acc_err, acc_ms, acc_plain, acc_bound,
+                        what, large)
+        _accumulate_row(rep, kernels.MSM_REDUCE.name, red_err, red_ms, red_plain, red_bound,
+                        what, large)
     return ok
 
 
-def _accumulate_row(rep, name, err, ms, plain_ms, bnd, what):
-    """A prove runs K4 once for G1 and once for G2: its row sums the two."""
-    prev = rep.rows.get(name)
-    if prev is None:
-        rep.add(name, equal_to_plain=err == 0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], timed=what)
+def _msm_against_plain(ops, pts, order, negs, ends, windows, groups, half, label, tag, sc, cc, t0):
+    """K4's two kernels against their plain versions on one MSM; returns
+    (accumulate err, reduce err, plain buckets, plain accumulate ms, plain
+    reduce ms)."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import msm
+
+    bk = msm.msm_accumulate(pts[0], pts[1], order, negs, ends, groups, half)
+    bp, acc_plain = timed_once(
+        lambda: msm.msm_accumulate_plain(pts[0], pts[1], order, negs, ends, groups, half))
+    acc_err = _points_err(ops, bk, bp)
+    wk = msm.msm_reduce(bp, windows, groups, half)
+    wp, red_plain = timed_once(lambda: msm.msm_reduce_plain(bp, windows, groups, half))
+    red_err = _points_err(ops, wk, wp)
+    log(f"  msm {tag} {label}: lanes {sc.shape[-1]}, c {cc}, W {windows}, G {groups}: "
+        f"accumulate err {acc_err} (bitwise equal {bool(torch.equal(bk, bp))}), reduce err "
+        f"{red_err} (bitwise equal {bool(torch.equal(wk, wp))}) [{time.perf_counter() - t0:.1f} s]")
+    return acc_err, red_err, bp, acc_plain, red_plain
+
+
+def _accumulate_row(rep, name, err, ms, plain_ms, bnd, what, large=False):
+    """A prove runs K4 once for G1 and once for G2: its row sums the two.
+    The large circuit's comparison counts in equal_to_plain and
+    max_abs_err; its times stand beside the row's, under "large"."""
+    if large:
+        row = rep.rows[name]
+        row["equal_to_plain"] = row["equal_to_plain"] and err == 0
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row = row.setdefault("large", {})
+    else:
+        row = rep.rows.setdefault(name, {})
+    if "ms" not in row:
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], timed=what)
+        if not large:
+            row.update(equal_to_plain=err == 0, max_abs_err=err)
         return
-    rep.add(name, equal_to_plain=prev["equal_to_plain"] and err == 0,
-            max_abs_err=max(prev["max_abs_err"], err), ms=prev["ms"] + ms,
-            plain_ms=prev["plain_ms"] + plain_ms, bound_ms=prev["bound_ms"] + bnd[0],
-            bound_by=prev["bound_by"] if prev["bound_by"] == bnd[1] else "operations",
-            timed=prev["timed"] + "; " + what)
+    if not large:
+        row.update(equal_to_plain=row["equal_to_plain"] and err == 0,
+                   max_abs_err=max(row["max_abs_err"], err))
+    row.update(ms=row["ms"] + ms, plain_ms=row["plain_ms"] + plain_ms,
+               bound_ms=row["bound_ms"] + bnd[0],
+               bound_by=row["bound_by"] if row["bound_by"] == bnd[1] else "operations",
+               timed=row["timed"] + "; " + what)
+
+
+# ---------------------------------------------------------------- K5-K8
+
+def check_ntt_block(rep, rng, dom, dev):
+    """K5 at (3, 8, n) against K3 stage by stage and against the plain
+    stages, word for word; K5 (at tile sizes 2^10..2^12) and K3 timed on
+    the inverse + forward pair of one coset evaluation."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import ntt
+
+    n, log_n = dom.n, dom.log_n
+    x = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
+
+    def pair(tile_log):
+        with patched((ntt, "NTT_BLOCK_MIN_LOG", 1), (ntt, "NTT_TILE_LOG", tile_log)):
+            return ntt.ntt_dit(ntt.intt_dif(x, dom), dom)
+
+    def stage_pair():
+        y = x.clone()
+        for s in range(log_n, 0, -1):
+            ntt.ntt_stage(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
+        inv = y.clone()
+        for s in range(1, log_n + 1):
+            ntt.ntt_stage(y, dom.tw_fwd, 1 << s, False)
+        return inv, y
+
+    def plain_pair():
+        y = x
+        for s in range(log_n, 0, -1):
+            y = ntt.ntt_stage_plain(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
+        inv = y
+        for s in range(1, log_n + 1):
+            y = ntt.ntt_stage_plain(y, dom.tw_fwd, 1 << s, False)
+        return inv, y
+
+    tile = ntt.NTT_TILE_LOG
+    with patched((ntt, "NTT_BLOCK_MIN_LOG", 1)):
+        inv_b = ntt.intt_dif(x, dom)
+        fwd_b = ntt.ntt_dit(inv_b, dom)
+    inv_s, fwd_s = stage_pair()
+    (inv_p, fwd_p), plain_ms = timed_once(plain_pair)
+    err_stage = max(max_word_err(inv_b, inv_s), max_word_err(fwd_b, fwd_s))
+    err_plain = max(max_word_err(inv_b, inv_p), max_word_err(fwd_b, fwd_p))
+    roundtrip = bool((fwd_b == x).all())
+    passes = ntt.block_passes(log_n, tile)
+    log(f"  ntt_block (3, 8, 2^{log_n}) intt+ntt, passes {passes}: max word err vs K3 stages "
+        f"{err_stage}, vs plain stages {err_plain}, roundtrip {roundtrip}")
+    ok = err_stage == 0 and err_plain == 0 and roundtrip
+    times = {}
+    for t in (10, 11, 12):
+        if t > log_n:
+            continue
+        same = bool(torch.equal(pair(t), fwd_b))
+        ok &= same
+        times[t] = cuda_time(lambda t=t: pair(t), 5)
+        log(f"  ntt_block tile 2^{t} ({len(ntt.block_passes(log_n, t))} passes each way): "
+            f"{times[t]:.3f} ms, equal {same}")
+    stage_ms = cuda_time(lambda: stage_pair(), 3)
+    log(f"  ntt_stage (K3) the same pair, {2 * log_n} launches: {stage_ms:.3f} ms")
+    butterflies = 2 * log_n * 3 * n // 2
+    bms, by = bound(2 * 3 * n * 32 + 2 * n * 32, (butterflies + 3 * n) * MULS_PER_MONT)
+    rep.add(kernels.NTT_BLOCK.name, equal_to_plain=ok, max_abs_err=max(err_stage, err_plain),
+            ms=times[tile] if tile in times else cuda_time(lambda: pair(tile), 5),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            timed=f"intt_dif + ntt_dit, (3, 8, 2^{log_n}), {2 * len(passes)} launches, tile 2^{tile}",
+            tile_ms={str(k): v for k, v in times.items()}, stage_kernel_ms=stage_ms)
+    return ok
+
+
+def ntt_threshold_sweep(dev, logs=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17)):
+    """K3 against K5 on the inverse + forward pair at batch 3, by domain
+    size: the measurement NTT_BLOCK_MIN_LOG is set from."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import ntt
+
+    out = {}
+    for log_n in logs:
+        dom = ntt.NTTDomain(log_n, dev)
+        x = torch.zeros((3, 8, dom.n), dtype=torch.int32, device=dev)
+        x[:, 0] = 5
+
+        def pair():
+            with patched((ntt, "NTT_BLOCK_MIN_LOG", 1)):
+                return ntt.ntt_dit(ntt.intt_dif(x, dom), dom)
+
+        def stages():
+            y = x.clone()
+            for s in range(log_n, 0, -1):
+                ntt.ntt_stage(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
+            for s in range(1, log_n + 1):
+                ntt.ntt_stage(y, dom.tw_fwd, 1 << s, False)
+            return y
+
+        if not torch.equal(pair(), stages()):
+            raise RuntimeError(f"K5 differs from K3 at 2^{log_n}")
+        out[log_n] = {"stage_ms": cuda_time(stages, 10),
+                      "block_ms": cuda_time(pair, 10)}
+        log(f"  2^{log_n}: K3 {out[log_n]['stage_ms']:.4f} ms, K5 {out[log_n]['block_ms']:.4f} ms")
+    return out
+
+
+def _stack_with_edges(ops, acc, new):
+    """Put the identity on the left (lane 0), on the right (lane 1), on
+    both sides (lane 2), P + P (lane 3) and P + (-P) (lane 4) into two
+    stacks of window sums."""
+    import torch
+
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+
+    shape = acc.shape
+    a, b = acc.flatten(-2).clone(), new.flatten(-2).clone()
+    ident = jc.point_stack(jc.identity(ops, 1, acc.device))
+    for lane, (left, right) in enumerate(((True, False), (False, True), (True, True))):
+        if left:
+            a[..., lane:lane + 1] = ident
+        if right:
+            b[..., lane:lane + 1] = ident
+    b[..., 3] = a[..., 3]
+    neg = jc.pneg(ops, jc.point_unstack(a[..., 4:5]))
+    b[..., 4:5] = torch.stack(neg)
+    return a.reshape(shape), b.reshape(shape)
+
+
+def check_acc_windows(rep, rng, cache, dev):
+    """K6 at the (G, W) of the cache's MSM plan, G1 and G2 (the large
+    circuit's: only its sliced route launches K6), on window sums of two
+    random MSMs over the key's first lanes, with the edge lanes put in."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+
+    ok, ms, plain_ms, bms, shapes, worst = True, 0.0, 0.0, 0.0, [], 0.0
+    for g2 in (False, True):
+        ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
+        if g2:
+            pts, groups, c = cache.points_b2, 1, cache.msm_c2
+        else:
+            pts, groups, c = cache.g1_points, len(cache.g1_sizes), cache.msm_c
+        lanes = min(4096, pts[0].shape[-1] // groups)
+        cut = tuple(p[..., :lanes * groups].contiguous() for p in pts)
+        stacks = [msm.msm_window_sums(random_field(rng, lb.FR_SPEC.modulus, (lanes * groups,), dev),
+                                      [lanes] * groups, cut, c) for _ in range(2)]
+        acc, new = _stack_with_edges(ops, *stacks)
+        got = msm.acc_windows(acc, new)
+        want, t_plain = timed_once(lambda: msm.acc_windows_plain(acc, new))
+        err = max_word_err(got, want)
+        affine = _points_err(ops, got, want)
+        gw = acc.shape[-2] * acc.shape[-1]
+        log(f"  point_add {'g2' if g2 else 'g1'} (G, W) = {tuple(acc.shape[-2:])}: max word err "
+            f"{err}, as affine points {affine}")
+        ok &= err == 0 and affine == 0
+        worst = max(worst, err, affine)
+        ms += cuda_time(lambda: msm.acc_windows(acc, new), 20)
+        plain_ms += t_plain
+        words = 16 if g2 else 8
+        b, _ = bound(3 * gw * 3 * words * 4, gw * FQ_MULS["g2" if g2 else "g1"]["add"] * MULS_PER_MONT)
+        bms += b
+        shapes.append(f"{'g2' if g2 else 'g1'} {tuple(acc.shape[-2:])}")
+    rep.add(kernels.POINT_ADD.name, equal_to_plain=ok, max_abs_err=worst, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by="operations",
+            timed="one accumulation each of (G, W) = " + " + ".join(shapes)
+                  + ", the sliced route's shapes")
+    return ok
+
+
+def check_precompute(rep, rng, cache, dev, c: int = 13, factor: int = 4):
+    """K7's two kernels at the G2 shape of the key for the plan (c, f):
+    each against its plain version word for word (with the identity and a
+    doubled point among the lanes), and `precompute_bases` (both kernels)
+    against host integers on the first lanes."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.refmath import curve as cv
+    from icicle_snark_tpu_torch.refmath.field import fq_from_mont
+
+    ok = True
+    shift = c * msm.merged_windows(c, factor)
+    for g2 in (False, True):
+        ops, plain = (jc.G2, jc.G2_PLAIN) if g2 else (jc.G1, jc.G1_PLAIN)
+        tag = "g2" if g2 else "g1"
+        x, y = cache.points_b2 if g2 else cache.points_a
+        n = x.shape[-1]
+        x, y = x.clone(), y.clone()
+        x[..., 0] = 0
+        y[..., 0] = 0  # the identity, as zkeys hold it
+        inf = ops.is_zero_lanes(x) & ops.is_zero_lanes(y)
+        one = ops.const((1, 0) if g2 else 1, n, dev)
+        p = (x, y, torch.where(inf, torch.zeros_like(one), one))
+        got = jc.pdbl_k(ops, p, shift)
+        want, dbl_plain = timed_once(lambda: jc.pdbl_k_plain(plain, p, shift))
+        err_dbl = max(max_word_err(a, b) for a, b in zip(got, want))
+        ax, ay = jc.to_affine(ops, got)
+        (px, py), aff_plain = timed_once(lambda: jc.to_affine_plain(plain, got))
+        err_aff = max(max_word_err(ax, px), max_word_err(ay, py))
+        inf_ok = bool(lb.is_zero(ax[..., :1]).all() and lb.is_zero(ay[..., :1]).all())
+        log(f"  point_dbl_k {tag} k = {shift}, {n} lanes: max word err {err_dbl}; "
+            f"point_to_affine: max word err {err_aff}, infinity -> (0, 0) {inf_ok}")
+        ok &= err_dbl == 0 and err_aff == 0 and inf_ok
+        if not g2:
+            continue
+        dbl_ms = cuda_time(lambda: jc.pdbl_k(ops, p, shift), 3)
+        aff_ms = cuda_time(lambda: jc.to_affine(ops, got), 3)
+        muls = FQ_MULS[tag]["dbl"] * MULS_PER_MONT
+        b_dbl = bound(2 * n * 3 * 64, n * shift * muls)
+        # z^-1: the norm (2 products), 254 squarings + 110 products, 2 to
+        # finish the Fq2 inverse; then x z^-1 and y z^-1 (3 products each)
+        b_aff = bound(n * 5 * 64, n * (2 + 364 + 2 + 6) * MULS_PER_MONT)
+        rep.add(kernels.POINT_DBL_K.name, equal_to_plain=err_dbl == 0, max_abs_err=err_dbl,
+                ms=dbl_ms, plain_ms=dbl_plain, bound_ms=b_dbl[0], bound_by=b_dbl[1],
+                timed=f"g2, {n} lanes, k = {shift} doublings (plan c {c}, f {factor})")
+        rep.add(kernels.POINT_TO_AFFINE.name, equal_to_plain=err_aff == 0 and inf_ok,
+                max_abs_err=err_aff, ms=aff_ms, plain_ms=aff_plain, bound_ms=b_aff[0],
+                bound_by=b_aff[1], timed=f"g2, {n} lanes")
+    # both kernels through precompute_bases, against host integers
+    lanes = 6
+    x, y = (t[..., :lanes].clone() for t in cache.points_b2)
+    x[..., 1] = 0
+    y[..., 1] = 0
+    pre = msm.precompute_bases((x, y), jc.G2, c, factor)
+
+    def host(t, lane):
+        return tuple(fq_from_mont(lb.limbs_to_ints(t[comp][:, lane:lane + 1])[0]) for comp in range(2))
+
+    same = pre[0].shape[-1] == lanes * factor
+    for i in range(lanes):
+        base = (host(x, i), host(y, i))
+        for m in range(factor):
+            want = base if base == ((0, 0), (0, 0)) else cv.g2_to_affine(
+                cv.g2_mul(cv.g2_from_affine(base), 1 << (shift * m)))
+            same &= (host(pre[0], i * factor + m), host(pre[1], i * factor + m)) == want
+    log(f"  precompute_bases g2 (c {c}, f {factor}) on {lanes} lanes equals host integers: {same}")
+    return ok and same
+
+
+def check_probe(rep, rng, dev, depth: int = 4096):
+    """K8: every (op, W) at depth 32 against its plain version on the card
+    (integers word for word, the fma chain within 1e-5 relative), then the
+    8-chain multiply timed at the probe's own shape."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.tools import throughput_probe as tp
+
+    ok, worst_int, worst_fma = True, 0.0, 0.0
+    n = 1 << 16
+    for op, name in enumerate(tp.OPS):
+        x, y = tp.probe_inputs(n, op, int(rng.integers(1 << 30)), dev)
+        if op != 4:
+            x[0], y[0], x[1], y[1] = -1, -1, -(1 << 31), 0x7FFFFFFF
+        for width in tp.WIDTHS:
+            got = tp.probe_chain(x, y, op, width, 32)
+            want = tp.probe_chain_plain(x, y, op, width, 32)
+            if op == 4:
+                g, w = got.view(torch.float32), want.view(torch.float32)
+                rel = float(((g - w).abs() / w.abs()).max())
+                worst_fma = max(worst_fma, rel)
+                ok &= rel <= 1e-5 and bool(torch.isfinite(g).all())
+            else:
+                err = max_word_err(got, want)
+                worst_int = max(worst_int, err)
+                ok &= err == 0
+    log(f"  probe_chain depth 32, {len(tp.OPS)} ops x W {tp.WIDTHS}: integer max word err "
+        f"{worst_int}, fma max relative err {worst_fma:.3g} (tolerance 1e-5)")
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 2048 * 8
+    x, y = tp.probe_inputs(lanes, 0, 0, dev)
+    ms = cuda_time(lambda: tp.probe_chain(x, y, 0, 8, depth), 3)
+    plain_depth = 64
+    plain_ms = cuda_time(lambda: tp.probe_chain_plain(x, y, 0, 8, plain_depth), 1, False)
+    bms, by = bound(lanes * 4 * (2 + 8), lanes * 8 * depth)
+    rep.add(kernels.PROBE.name, equal_to_plain=ok, max_abs_err=max(worst_int, worst_fma), ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            timed=f"u32_mul, W = 8, {lanes} lanes, depth {depth} (plain version timed at depth "
+                  f"{plain_depth}); max_abs_err is the fma chain's relative error")
+    return ok
 
 
 # ---------------------------------------------------------------- profile
 
 KERNEL_NAMES = ("field_vec_kernel", "r1cs_reduce_kernel", "ntt_stage_kernel",
-                "msm_accumulate_kernel", "msm_reduce_segments_kernel", "msm_reduce_final_kernel")
+                "msm_accumulate_kernel", "msm_reduce_segments_kernel", "msm_reduce_final_kernel",
+                "ntt_block_kernel", "point_add_kernel", "point_dbl_k_kernel",
+                "point_to_affine_kernel", "probe_chain_kernel")
 
 
 def profile_prove(paths, cm) -> dict:
@@ -405,9 +761,96 @@ def make_fixture(directory: str, n_constraints: int, device):
     return r1cs, paths
 
 
+def _prove_bytes(api, paths, cm, **kw):
+    """One prove through the API; returns (seconds, proof.json bytes, public.json bytes)."""
+    secs = api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"], cm, **kw)
+    with open(paths["proof"], "rb") as fh:
+        proof = fh.read()
+    with open(paths["public"], "rb") as fh:
+        public = fh.read()
+    return secs, proof, public
+
+
+def drive_proves(tag, paths, cm, dev, failures, counts_log):
+    """First prove (deterministic, verified), three warm randomized proves
+    with phases (the last verified), launch counts of the first warm one.
+    Returns (first seconds, warm seconds, launches, deterministic proof bytes)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.prover import api, pipeline
+
+    t0 = time.perf_counter()
+    _, det, det_pub = _prove_bytes(api, paths, cm, deterministic=True,
+                                   timer=pipeline.PhaseTimer(dev))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    log(f"[{tag}] first prove {first:.3f} s")
+    if not api.groth16_verify(paths["proof"], paths["public"], paths["vk"]):
+        failures.append(f"{tag}: deterministic proof does not verify")
+    warm, launches = [], None
+    for i in range(3):
+        timer = pipeline.PhaseTimer(dev)
+        if i == 0:
+            kernels.reset_counts()
+        secs = api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"], cm,
+                                 deterministic=False, timer=timer)
+        if i == 0:
+            launches = kernels.counts()
+        warm.append(secs)
+        log(f"[{tag}] warm prove {i}: {secs:.3f} s, phases "
+            + json.dumps({k: round(v, 4) for k, v in timer.phases.items()}))
+    log(f"[{tag}] launches in one prove: {json.dumps(launches)}")
+    counts_log[tag] = launches
+    if not api.groth16_verify(paths["proof"], paths["public"], paths["vk"]):
+        failures.append(f"{tag}: randomized proof does not verify")
+    else:
+        log(f"[{tag}] deterministic and randomized proofs verify")
+    return first, warm, launches, (det, det_pub)
+
+
+def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict:
+    """The prove's own G2 and G1 MSMs (this witness's scalars) at the given
+    (c, f) plans (c None: `choose_c` for that f): window sums only, CUDA
+    events, bases precomputed beforehand. `cache` must hold f = 1 bases."""
+    import torch
+
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    witness = lb.words_to_limbs(WtnsFile(paths["wtns"]).witness_limbs(), dev)
+    npub = cache.header.n_public
+    h = pipeline.construct_r1cs(witness, cache)
+    g1_scalars = torch.cat([witness, witness, witness[:, npub + 1:], h], dim=-1)
+    n2 = witness.shape[-1]
+    out = {}
+    for c, f in g2_plans:
+        c = c or msm.choose_c(n2, 1, f)
+        pre = msm.precompute_bases(cache.points_b2, jc.G2, c, f)
+        out[f"g2 c{c} f{f}"] = cuda_time(
+            lambda: msm.msm_window_sums(witness, [n2], pre, c, f), reps)
+        del pre
+    groups = (cache.points_a, cache.points_b1, cache.points_c, cache.points_h)
+    for c, f in g1_plans:
+        c = c or msm.choose_c(sum(cache.g1_sizes), 4, f)
+        pre = tuple(torch.cat([msm.precompute_bases(g, jc.G1, c, f)[i] for g in groups], dim=-1)
+                    for i in range(2))
+        out[f"g1 c{c} f{f}"] = cuda_time(
+            lambda: msm.msm_window_sums(g1_scalars, cache.g1_sizes, pre, c, f), reps)
+        del pre
+    for k, v in out.items():
+        log(f"  msm window sums {k}: {v:.2f} ms")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--constraints", type=int, default=100000)
+    ap.add_argument("--large-constraints", type=int, default=1600000,
+                    help="size of the large circuit (complex-1600k by default)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -418,16 +861,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from icicle_snark_tpu_torch import kernels
-    from icicle_snark_tpu_torch.prover import api, pipeline
+    from icicle_snark_tpu_torch.ops import msm as msm_ops
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+    from icicle_snark_tpu_torch.prover import api
     from icicle_snark_tpu_torch.refmath import groth16 as oracle
     from icicle_snark_tpu_torch.setup.r1cs import complex_circuit, complex_circuit_witness
     from icicle_snark_tpu_torch.setup.trusted_setup import groth16_setup
+    from icicle_snark_tpu_torch.tools import throughput_probe
     from icicle_snark_tpu_torch.io.wtns import write_wtns
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     failures = []
+    path_counts = {}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -456,7 +903,8 @@ def main() -> int:
         f"G2 lanes {cache.points_b2[0].shape[-1]}, window size c = {cache.msm_c} (G1), "
         f"{cache.msm_c2} (G2)")
 
-    # ---- 3. kernels against their plain versions
+    # ---- 3. kernels against their plain versions (K5 and K6 follow in
+    # phase 6, at the large circuit's shapes, with K4 once more)
     rep = Report()
     t0 = time.perf_counter()
     checks = [
@@ -465,41 +913,19 @@ def main() -> int:
         ("ntt_stage", lambda: check_ntt(rep, rng, cache, dev)),
         ("msm g1", lambda: check_msm(rep, rng, cache, dev, False)),
         ("msm g2", lambda: check_msm(rep, rng, cache, dev, True)),
+        ("precompute", lambda: check_precompute(rep, rng, cache, dev)),
+        ("probe_chain", lambda: check_probe(rep, rng, dev)),
     ]
     for name, fn in checks:
+        t1 = time.perf_counter()
         if not fn():
             failures.append(f"kernel {name} differs from its plain version")
+        log(f"[kernels] {name} checked in {time.perf_counter() - t1:.1f} s")
     log(f"[kernels] checks in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. proves through the API
-    timer = pipeline.PhaseTimer(dev)
-    t0 = time.perf_counter()
-    api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"], cm,
-                      deterministic=True, timer=timer)
-    log(f"[prove] first prove {time.perf_counter() - t0:.3f} s")
-    if not api.groth16_verify(paths["proof"], paths["public"], paths["vk"]):
-        failures.append("deterministic proof does not verify")
-    warm = []
-    launches = None
-    for i in range(3):
-        timer = pipeline.PhaseTimer(dev)
-        if i == 0:
-            kernels.reset_counts()
-        s = api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"], cm,
-                              deterministic=False, timer=timer)
-        if i == 0:
-            launches = kernels.counts()
-        warm.append(s)
-        log(f"[prove] warm prove {i}: {s:.3f} s, phases "
-            + json.dumps({k: round(v, 4) for k, v in timer.phases.items()}))
-    log(f"[prove] launches in one prove: {json.dumps(launches)}")
-    if not api.groth16_verify(paths["proof"], paths["public"], paths["vk"]):
-        failures.append("randomized proof does not verify")
-    else:
-        log("[prove] deterministic and randomized proofs verify")
-    for name, count in launches.items():
-        if count == 0:
-            failures.append(f"kernel {name} did not launch during the prove")
+    first_s, warm, launches, det_small = drive_proves(f"complex-{n}", paths, cm, dev, failures,
+                                                      path_counts)
     prof = profile_prove(paths, cm)
     if prof["device_busy_ms"] == 0:
         log("[profile] the profiler saw no device time")
@@ -509,7 +935,121 @@ def main() -> int:
             log("[profile] WARNING: summed device time exceeds the wall time "
                 "(overlapping events); the idle share is not a measurement")
 
-    # ---- 5. small fixture against the oracle
+    # ---- 5. the same circuit with the JAX package's own MSM plan
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    cm_plan = api.CacheManager("cuda", msm_plan=((13, 1), (13, 4)))
+    cm_plan.get(paths["zkey"])
+    torch.cuda.synchronize()
+    plan_cache_s = time.perf_counter() - t0
+    plan_s, plan_proof, plan_public = _prove_bytes(api, paths, cm_plan, deterministic=True)
+    path_counts[f"complex-{n} plan G1 (13, 1), G2 (13, 4)"] = kernels.counts()
+    same_plan = (plan_proof, plan_public) == det_small
+    log(f"[plan] complex-{n}, G1 (13, 1), G2 (13, 4): cold cache with precompute {plan_cache_s:.3f} "
+        f"s, prove {plan_s:.3f} s, deterministic proof == the f = 1 proof: {same_plan}; launches "
+        + json.dumps(path_counts[f"complex-{n} plan G1 (13, 1), G2 (13, 4)"]))
+    if not same_plan:
+        failures.append("precomputed-bases proof differs from the f = 1 proof")
+    del cm_plan
+    plan_ms = time_msm_plans(
+        cache, paths, dev,
+        g2_plans=((None, 1), (None, 2), (13, 1), (13, 2), (13, 4), (16, 1), (16, 2)),
+        g1_plans=((None, 1), (None, 2), (13, 1), (16, 1), (16, 2)))
+    sweep = ntt_threshold_sweep(dev)
+
+    # ---- 6. the large circuit
+    m = args.large_constraints
+    del cm, cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, big = make_fixture(os.path.join(HERE, ".fixtures", f"torch_complex_{m}"), m, dev)
+    big_setup_s = time.perf_counter() - t0
+    log(f"[large] complex-{m} fixture in {big_setup_s:.1f} s")
+    cm_big = api.CacheManager("cuda")
+    t0 = time.perf_counter()
+    cache_big = cm_big.get(big["zkey"])
+    torch.cuda.synchronize()
+    big_cold_s = time.perf_counter() - t0
+    g1_lanes, g2_lanes = sum(cache_big.g1_sizes), cache_big.points_b2[0].shape[-1]
+    log(f"[large] cold cache {big_cold_s:.3f} s: n_vars {cache_big.header.n_vars}, domain "
+        f"2^{cache_big.header.power}, G1 lanes {g1_lanes}, G2 lanes {g2_lanes}, c = "
+        f"{cache_big.msm_c} (G1), {cache_big.msm_c2} (G2), MSM_MAX_LANES {msm_ops.MSM_MAX_LANES}, "
+        f"NTT route {'K5' if cache_big.header.power >= ntt_ops.NTT_BLOCK_MIN_LOG else 'K3'}")
+    t1 = time.perf_counter()
+    if not check_ntt_block(rep, rng, cache_big.domain, dev):
+        failures.append("kernel ntt_block differs from its plain version or from K3")
+    log(f"[kernels] ntt_block checked in {time.perf_counter() - t1:.1f} s")
+    for name, fn in (
+            ("point_add", lambda: check_acc_windows(rep, rng, cache_big, dev)),
+            ("msm g1", lambda: check_msm(rep, rng, cache_big, dev, False, large=True)),
+            ("msm g2", lambda: check_msm(rep, rng, cache_big, dev, True, large=True))):
+        t1 = time.perf_counter()
+        if not fn():
+            failures.append(f"kernel {name} differs from its plain version at complex-{m}")
+        torch.cuda.empty_cache()
+        log(f"[kernels] {name} at complex-{m} checked in {time.perf_counter() - t1:.1f} s")
+    tag = f"complex-{m}"
+    torch.cuda.reset_peak_memory_stats()
+    big_first_s, big_warm, big_launches, det_big = drive_proves(tag, big, cm_big, dev, failures,
+                                                                path_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[large] peak device memory over the proves {peak_gb:.2f} GB")
+    big_prof = profile_prove(big, cm_big)
+    log("[large] profile of one warm prove: " + json.dumps(big_prof))
+    variants = {}
+
+    def forced(label, cmgr, patches=()):
+        """One deterministic prove with module constants patched for its
+        duration; its proof must equal the default route's byte for byte."""
+        with patched(*patches):
+            kernels.reset_counts()
+            secs, proof, public = _prove_bytes(api, big, cmgr, deterministic=True)
+            counts = kernels.counts()
+        variants[label] = {"s": secs, "launches": counts, "same": (proof, public) == det_big}
+        path_counts[f"{tag} {label}"] = counts
+        log(f"[large] deterministic prove, {label}: {secs:.3f} s, byte-identical to the first "
+            f"deterministic proof: {variants[label]['same']}; launches {json.dumps(counts)}")
+        if not variants[label]["same"]:
+            failures.append(f"{tag}: the {label} proof differs from the default route's")
+
+    forced("default (in core, K5)", cm_big)
+    forced("NTT forced to K3", cm_big, [(ntt_ops, "NTT_BLOCK_MIN_LOG", 99)])
+    forced("MSM sliced, max_lanes 2^21", cm_big, [(msm_ops, "MSM_MAX_LANES", 1 << 21)])
+    if cache_big.header.power >= ntt_ops.NTT_BLOCK_MIN_LOG:
+        if variants["default (in core, K5)"]["launches"]["ntt_block"] == 0:
+            failures.append(f"{tag}: the default route did not launch K5")
+        if variants["NTT forced to K3"]["launches"]["ntt_block"] != 0:
+            failures.append(f"{tag}: the K3-forced route launched K5")
+    sliced_launches = variants["MSM sliced, max_lanes 2^21"]["launches"]
+    if g1_lanes > (1 << 21) and sliced_launches["point_add"] == 0:
+        failures.append(f"{tag}: the sliced route did not launch K6")
+    big_plan_ms = time_msm_plans(
+        cache_big, big, dev, reps=2,
+        g2_plans=((None, 1), (None, 2), (16, 1), (16, 2)),
+        g1_plans=((None, 1), (None, 2), (15, 1), (15, 2)))
+    cm_f2 = api.CacheManager("cuda", msm_plan=((cache_big.msm_c, 1), (cache_big.msm_c2, 2)))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    cm_f2.get(big["zkey"])
+    torch.cuda.synchronize()
+    path_counts[f"{tag} cold cache, G2 f = 2"] = kernels.counts()
+    log(f"[large] cold cache with G2 factor 2: {time.perf_counter() - t0:.3f} s, launches "
+        + json.dumps(path_counts[f"{tag} cold cache, G2 f = 2"]))
+    forced("G2 bases precomputed, f = 2", cm_f2)
+    del cm_f2
+
+    # ---- 7. the probe entry point
+    kernels.reset_counts()
+    probe_rows = throughput_probe.measure()
+    path_counts["throughput probe"] = kernels.counts()
+    for r in probe_rows:
+        log(f"[probe] {r['op']:13s} W={r['width']}  depth {r['depth']}  {r['ms']:9.3f} ms  "
+            f"{r['t_ops_per_s']:8.3f} T op/s")
+    mul_rate = throughput_probe.multiply_rate(probe_rows)
+    log("[probe] multiply rate: " + json.dumps(mul_rate) + f"; the bounds assume "
+        f"{INT_MULS_PER_S / 1e12:.2f} T multiplies/s")
+
+    # ---- 8. small fixture against the oracle
     small = os.path.join(OUT_DIR, "smoke_complex_40_50")
     os.makedirs(small, exist_ok=True)
     r1cs = complex_circuit(40, 50)
@@ -538,24 +1078,40 @@ def main() -> int:
     if not same_proof or "OK!" not in cli.stdout or cli.returncode:
         failures.append("small deterministic proof differs from the oracle's")
 
-    # ---- 6. report
+    # ---- 9. report: a kernel's launches are those of the first driven path
+    # that ran it (each path was driven with the counts set to 0 before it)
     rows = []
     for k in kernels.ALL:
         row = rep.rows.get(k.name, {})
+        ran = [(path, c[k.name]) for path, c in path_counts.items() if c.get(k.name)]
+        if not ran:
+            failures.append(f"kernel {k.name} did not launch on any driven path")
         rows.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": launches.get(k.name, 0), "max_abs_err": row.get("max_abs_err"),
+            "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
+            "launches_by_path": dict(ran), "max_abs_err": row.get("max_abs_err"),
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": None,
             "equal_to_plain": row.get("equal_to_plain"), "timed": row.get("timed"),
+            **({"large": row["large"]} if "large" in row else {}),
         })
+        if row.get("equal_to_plain") is None:
+            failures.append(f"kernel {k.name} was not held against its plain version")
     summary = {
-        "card": card, "constraints": n, "cold_cache_s": cold_cache_s,
-        "warm_prove_s": warm, "launches": launches, "profile": prof, "failures": failures,
-        "total_s": time.perf_counter() - t_all, "kernels": rows,
+        "card": card, "constraints": n, "cold_cache_s": cold_cache_s, "first_prove_s": first_s,
+        "warm_prove_s": warm, "launches": launches, "profile": prof,
+        "plan_13_4": {"cold_cache_s": plan_cache_s, "prove_s": plan_s, "same_proof": same_plan},
+        "msm_plan_ms": plan_ms, "ntt_threshold_sweep": sweep,
+        "large": {"constraints": m, "setup_s": big_setup_s, "cold_cache_s": big_cold_s,
+                  "first_prove_s": big_first_s, "warm_prove_s": big_warm,
+                  "launches": big_launches, "profile": big_prof, "peak_memory_gb": peak_gb,
+                  "deterministic_variants": variants, "msm_plan_ms": big_plan_ms,
+                  "ntt_block": rep.rows.get(kernels.NTT_BLOCK.name)},
+        "probe": probe_rows, "multiply_rate": mul_rate, "path_counts": path_counts,
+        "failures": failures, "total_s": time.perf_counter() - t_all, "kernels": rows,
     }
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"chip_smoke_{n}.json"), "w") as fh:
+    with open(os.path.join(OUT_DIR, f"chip_smoke_{n}_{m}.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
     if failures:
         for f in failures:

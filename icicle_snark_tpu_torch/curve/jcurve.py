@@ -1,4 +1,5 @@
-"""Batched BN254 G1/G2 point arithmetic in plain torch over the K1 field ops.
+"""Batched BN254 G1/G2 point arithmetic in plain torch over the K1 field
+ops, and the wrappers of the two per-lane point kernels of K7.
 
 Complete a=0 short-Weierstrass formulas (Renes-Costello-Batina 2015,
 algorithms 7/8/9), the same as icicle_snark_tpu/curve/jcurve.py and as the
@@ -6,7 +7,9 @@ per-thread versions in csrc/curve.cuh that the MSM kernel (K4) runs. Here
 every field operation is one K1 launch over a whole batch of points (for
 CUDA tensors), with independent products batched into one launch
 (`mul_many`). The trusted-setup generator runs its fixed-base scan on
-these; K4's plain version runs them with `plain=True` ops.
+these; K4's plain version runs them with `plain=True` ops. `pdbl_k` (k
+doublings) and `to_affine` launch `csrc/precompute.cu` for CUDA tensors
+and run `pdbl_k_plain` / `to_affine_plain` for CPU tensors.
 
 Point representations (Montgomery-form limbs, see fields/limbs.py):
   G1: (x, y, z), each (8, n)
@@ -18,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..fields import limbs as lb
-from ..fields.limbs import FQ_SPEC, OP_ADD, OP_MUL, OP_NEG, OP_SUB
+from ..fields.limbs import FQ_SPEC, NLIMB, OP_ADD, OP_MUL, OP_NEG, OP_SUB
 from ..refmath.curve import B_G1, B_G2
 from ..refmath.field import Q, fq_to_mont
 
@@ -237,11 +241,56 @@ def points_equal(ops, p, q):
     return same & (ops.is_zero_lanes(z1) == ops.is_zero_lanes(z2))
 
 
-def to_affine(ops, p):
-    """Projective -> affine (x, y) Montgomery limbs; infinity -> (0, 0)."""
+def _check_point(ops, p, what: str):
+    want = 3 if ops.g2 else 2
+    for a in p:
+        if (a.dtype != torch.int32 or a.dim() != want or a.shape[-2] != NLIMB
+                or a.shape != p[0].shape or a.device != p[0].device):
+            raise ValueError(f"{what}: want int32 {'(2, 8, n)' if ops.g2 else '(8, n)'} "
+                             f"coordinates, got {tuple(a.shape)}")
+
+
+def pdbl_k_plain(ops, p, k: int):
+    """Plain version of K7 point_dbl_k: k complete doublings."""
+    for _ in range(k):
+        p = pdbl(ops, p)
+    return p
+
+
+def pdbl_k(ops, p, k: int):
+    """2^k * p per lane (k complete doublings; the identity stays)."""
+    _check_point(ops, p, "pdbl_k")
+    dev = p[0].device
+    if dev.type == "cpu":
+        return pdbl_k_plain(ops, p, k)
+    if dev.type != "cuda":
+        raise RuntimeError(f"pdbl_k: unsupported device {dev}")
+    src = point_stack(p).contiguous()
+    out = torch.empty_like(src)
+    kernels.POINT_DBL_K.launch(int(ops.g2), out.data_ptr(), src.data_ptr(), src.shape[-1], k)
+    return point_unstack(out)
+
+
+def to_affine_plain(ops, p):
+    """Plain version of K7 point_to_affine."""
     x, y, z = p
     inf = ops.is_zero_lanes(z)
     zi = ops.inv(z)
     ax, ay = ops.mul_many([(x, zi), (y, zi)])
     zero = torch.zeros_like(ax)
     return torch.where(inf, zero, ax), torch.where(inf, zero, ay)
+
+
+def to_affine(ops, p):
+    """Projective -> affine (x, y) Montgomery limbs; infinity -> (0, 0)."""
+    _check_point(ops, p, "to_affine")
+    dev = p[0].device
+    if dev.type == "cpu":
+        return to_affine_plain(ops, p)
+    if dev.type != "cuda":
+        raise RuntimeError(f"to_affine: unsupported device {dev}")
+    src = point_stack(p).contiguous()
+    ax, ay = torch.empty_like(src[0]), torch.empty_like(src[0])
+    kernels.POINT_TO_AFFINE.launch(
+        int(ops.g2), ax.data_ptr(), ay.data_ptr(), src.data_ptr(), src.shape[-1])
+    return ax, ay

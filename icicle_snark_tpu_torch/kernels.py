@@ -113,6 +113,16 @@ _SIGNATURES = {
     "snark_msm_accumulate": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     # g2, out, partial, buckets, windows, groups, half, seg, nbits, stream
     "snark_msm_reduce": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
+    # x, tw, scale, batch, n, log_n, low, k, tcols_log, inverse, stream
+    "snark_ntt_block": [_VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP],
+    # g2, out, a, b, n, stream
+    "snark_point_add": [_I, _VP, _VP, _VP, _LL, _VP],
+    # g2, out, in, n, k, stream
+    "snark_point_dbl_k": [_I, _VP, _VP, _LL, _I, _VP],
+    # g2, out_x, out_y, in, n, stream
+    "snark_point_to_affine": [_I, _VP, _VP, _VP, _LL, _VP],
+    # op, width, out, x, y, n, depth, stream
+    "snark_probe_chain": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
 }
 
 
@@ -156,7 +166,28 @@ MSM_REDUCE = Kernel(
     "msm_reduce", "snark_msm_reduce", "icicle_snark_tpu_torch/csrc/msm.cu",
     "icicle_snark_tpu/ops/msm.py:701",
 )
-ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE)
+NTT_BLOCK = Kernel(
+    "ntt_block", "snark_ntt_block", "icicle_snark_tpu_torch/csrc/ntt_block.cu",
+    "icicle_snark_tpu/ops/mxu_ntt.py:350",
+)
+POINT_ADD = Kernel(
+    "point_add", "snark_point_add", "icicle_snark_tpu_torch/csrc/point_vec.cu",
+    "icicle_snark_tpu/ops/msm.py:961",
+)
+POINT_DBL_K = Kernel(
+    "point_dbl_k", "snark_point_dbl_k", "icicle_snark_tpu_torch/csrc/precompute.cu",
+    "icicle_snark_tpu/ops/msm.py:431",
+)
+POINT_TO_AFFINE = Kernel(
+    "point_to_affine", "snark_point_to_affine", "icicle_snark_tpu_torch/csrc/precompute.cu",
+    "icicle_snark_tpu/ops/msm.py:414",
+)
+PROBE = Kernel(
+    "probe_chain", "snark_probe_chain", "icicle_snark_tpu_torch/csrc/probe.cu",
+    "tools/pallas_microbench.py:53; tools/vpu_ceiling_probe.py:105",
+)
+ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
+       NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE)
 
 
 def reset_counts():

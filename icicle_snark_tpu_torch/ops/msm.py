@@ -1,4 +1,4 @@
-"""Pippenger multi-scalar multiplication (kernel K4).
+"""Pippenger multi-scalar multiplication (kernels K4, K6, K7).
 
 The bucket method as the reference runs it on a GPU, over the data layout
 of icicle_snark_tpu/ops/msm.py:
@@ -15,6 +15,17 @@ All G1 MSMs of a prove run as ONE pipeline over group-concatenated lanes
 (the batched mode of the JAX package); the window sums come back stacked
 (3, coords..., G, W) in Montgomery form, G1 coords (8,), G2 (2, 8).
 Scalars are raw integers (8, n) int32 (the witness and h values).
+
+Two variants of the JAX package's large-circuit path ride on the same
+kernels:
+  * sliced (`msm_windows_sliced`): past `MSM_MAX_LANES` point lanes the
+    concatenated lanes are cut into fixed-width slices, each slice runs
+    steps 1-4 with per-lane group ids, and `acc_windows` (K6) adds the
+    slices' window sums in slice order;
+  * precomputed bases (`precompute_bases`, K7): with factor f the key holds
+    f affine copies 2^(c*wp*m) * P of every base, interleaved at lane
+    i*f + m, and the W = ceil(256/c) digit windows merge into
+    wp = ceil(W/f) windows over f times the lanes.
 """
 
 from __future__ import annotations
@@ -33,17 +44,66 @@ SCALAR_BITS = 256
 REDUCE_SEG = 32
 
 
-def choose_c(n: int, groups: int = 1) -> int:
-    """Window size that minimises the point additions of the bucket method:
-    ceil(256/c) windows, each costing one mixed add per lane plus two adds
-    per bucket in the reduce (c in 8..16; signed digits need c >= 8)."""
+# Point lanes one in-core MSM pipeline may hold. Per point lane the
+# pipeline keeps, for each of W windows: the digit and its key (2 x int64),
+# torch.sort's sorted keys and order (2 x int64), the int32 order K4 reads,
+# and three sign bytes: 39 bytes, 624 per lane at W = 16 (c = 16) and 780
+# at W = 20 (c = 13), plus the affine point (64 bytes G1, 128 G2): 1 KiB
+# per lane covers both. 2^25 lanes are then 32 GiB of an 80 GB card, which
+# leaves room for the proving key, the NTT batch and the allocator's slack.
+# The G2 MSM takes half the lanes, as in the JAX package.
+MSM_MAX_LANES = 1 << 25
+# Precompute factor of the default plan (G1, G2). Measured on an H100
+# (PERF.md), factor 2 took 3 to 7 % off the window sums at the same
+# window size, and 5 % off a complex-1600k prove, for twice the resident
+# bases and a longer cache build: the default stays 1.
+MSM_PRE_DEFAULT = (1, 1)
+
+
+def merged_windows(c: int, factor: int = 1) -> int:
+    """Windows left after merging: wp = ceil(ceil(256 / c) / factor)."""
+    return -(-(-(-SCALAR_BITS // c)) // factor)
+
+
+# BN254 scalars are below the 254-bit group order r.
+SCALAR_DATA_BITS = 254
+# What one serial point addition costs in units of the card's aggregate time
+# per addition: K4 walks a bucket's run, and sums the reduce's segments, in
+# ONE thread. Measured on an H100 (PERF.md): a lone thread's G1 add
+# takes about 12 us against 0.8 ns per add with the card full, G2 82 us
+# against 8.5 ns: 2^13 to 2^14.
+SERIAL_WEIGHT = 1 << 13
+
+
+def choose_c(n: int, groups: int = 1, factor: int = 1) -> int:
+    """Window size that minimises K4's modelled time, in point additions
+    (c in 8..16; signed digits need c >= 8): wp merged windows, each with
+    one mixed add per point lane (n * factor, dead slots included) and two
+    adds per bucket in the reduce, all spread over the card; plus the two
+    chains that run in a single thread, weighted by SERIAL_WEIGHT: the
+    longest bucket run and the reduce's final pass over H / REDUCE_SEG
+    segment sums. The longest run is the top window's: the window that
+    holds bit 253 has only 254 - c * floor(253 / c) data bits, so its
+    lanes crowd into 2^bits buckets (c = 13: 128 buckets, c = 14: 4,
+    c = 15 and 16: 2^14)."""
     best_c, best_cost = 8, None
     for c in range(8, 17):
-        windows = -(-SCALAR_BITS // c)
-        cost = windows * (n + 2 * groups * (1 << (c - 1)))
+        half = 1 << (c - 1)
+        top_bits = SCALAR_DATA_BITS - ((SCALAR_DATA_BITS - 1) // c) * c
+        longest_run = n / groups / min(half, 1 << top_bits)
+        cost = (merged_windows(c, factor) * (n * factor + 2 * groups * half)
+                + SERIAL_WEIGHT * (longest_run + half / REDUCE_SEG))
         if best_cost is None or cost < best_cost:
             best_c, best_cost = c, cost
     return best_c
+
+
+def choose_c_pre(n: int, groups: int = 1, g2: bool = False) -> tuple:
+    """The default (window size, precompute factor) of a fixed-base MSM
+    (icicle_snark_tpu/ops/msm.py choose_c_pre): the measured factor and the
+    window size that goes with it."""
+    factor = MSM_PRE_DEFAULT[1 if g2 else 0]
+    return choose_c(n, groups, factor), factor
 
 
 def window_digits_signed(scalars: torch.Tensor, c: int):
@@ -198,16 +258,96 @@ def msm_reduce(buckets, windows: int, groups: int, half: int):
     return out
 
 
+# ---------------------------------------------------------------- K6
+
+def acc_windows_plain(acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: jcurve.padd over the flattened (G, W) lanes."""
+    g2 = acc.dim() == 5
+    ops = _ops(g2, True)
+    a, b = acc.flatten(-2), new.flatten(-2)
+    out = jc.point_stack(jc.padd(ops, jc.point_unstack(a), jc.point_unstack(b)))
+    return out.reshape(acc.shape)
+
+
+def acc_windows(acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Lane-wise complete projective add of two stacks of window sums,
+    (3, 8, G, W) for G1 or (3, 2, 8, G, W) for G2 (icicle_snark_tpu/ops/
+    msm.py _acc_windows). Identities (z = 0) on either side pass through."""
+    g2 = acc.dim() == 5
+    if (acc.shape != new.shape or acc.dtype != torch.int32 or new.dtype != torch.int32
+            or acc.dim() not in (4, 5) or acc.shape[0] != 3 or acc.shape[-3] != NLIMB
+            or acc.device != new.device):
+        raise ValueError(
+            f"acc_windows: want two int32 (3, [2,] 8, G, W), got {tuple(acc.shape)}, "
+            f"{tuple(new.shape)}")
+    if acc.device.type == "cpu":
+        return acc_windows_plain(acc, new)
+    if acc.device.type != "cuda":
+        raise RuntimeError(f"acc_windows: unsupported device {acc.device}")
+    acc, new = acc.contiguous(), new.contiguous()
+    out = torch.empty_like(acc)
+    kernels.POINT_ADD.launch(int(g2), out.data_ptr(), acc.data_ptr(), new.data_ptr(),
+                             acc.shape[-1] * acc.shape[-2])
+    return out
+
+
+# ---------------------------------------------------------------- K7: precompute
+
+def precompute_bases(points, ops, c: int, factor: int):
+    """Precompute-factor bases (icicle_snark_tpu/ops/msm.py
+    precompute_bases): affine (x, y) with n lanes -> n * factor lanes, lane
+    i * factor + m holding 2^(m * c * wp) * P_i, wp = merged_windows(c,
+    factor). Each further copy is c * wp doublings (K7 point_dbl_k) of the
+    last one, made affine again (K7 point_to_affine); (0, 0) stays (0, 0)."""
+    if factor == 1:
+        return points
+    x, y = points
+    shift = c * merged_windows(c, factor)
+    copies = [(x, y)]
+    for _ in range(factor - 1):
+        ax, ay = copies[-1]
+        inf = ops.is_zero_lanes(ax) & ops.is_zero_lanes(ay)
+        one = ops.const((1, 0) if ops.g2 else 1, ax.shape[-1], ax.device)
+        z = torch.where(inf, torch.zeros_like(one), one)
+        copies.append(jc.to_affine(ops, jc.pdbl_k(ops, (ax, ay, z), shift)))
+    return tuple(
+        torch.stack([cp[i] for cp in copies], dim=-1).flatten(-2).contiguous() for i in range(2))
+
+
+def merge_digit_windows(arr: torch.Tensor, factor: int, fill=0) -> torch.Tensor:
+    """(W, n) per-window rows -> (wp, n * factor) merged rows: merged window
+    j, lane i * factor + m = arr[j + m * wp, i]; the dead slots (wp * factor
+    > W) hold `fill` (icicle_snark_tpu/ops/msm.py _merge_digit_windows)."""
+    w, n = arr.shape
+    wp = -(-w // factor)
+    if wp * factor > w:
+        arr = torch.cat([arr, torch.full((wp * factor - w, n), fill, dtype=arr.dtype,
+                                         device=arr.device)])
+    return arr.reshape(factor, wp, n).permute(1, 2, 0).reshape(wp, n * factor)
+
+
 # ---------------------------------------------------------------- pipeline
 
-def sort_windows(scalars: torch.Tensor, group_sizes, c: int):
-    """Digits, keys and the per-window sort: (order, negs, ends) for K4."""
+def sort_windows(scalars: torch.Tensor, groups_of, c: int, precompute: int = 1):
+    """Digits, keys and the per-window sort: (order, negs, ends) for K4.
+    `groups_of` is the list of group sizes, or (gids, n_groups) with a
+    per-lane group id tensor; lanes whose id is n_groups sort past every
+    bucket. With precompute f the rows are the merged windows over f
+    times the lanes."""
     half = 1 << (c - 1)
-    groups = len(group_sizes)
     dev = scalars.device
+    if isinstance(groups_of, tuple):
+        gid, groups = groups_of
+        gid = gid.to(device=dev, dtype=torch.int64)
+    else:
+        groups = len(groups_of)
+        gid = torch.repeat_interleave(
+            torch.arange(groups, device=dev), torch.tensor(list(groups_of), device=dev))
     digits, neg = window_digits_signed(scalars, c)
-    gid = torch.repeat_interleave(
-        torch.arange(groups, device=dev), torch.tensor(list(group_sizes), device=dev))
+    if precompute > 1:
+        digits = merge_digit_windows(digits, precompute, 0)
+        neg = merge_digit_windows(neg, precompute, False)
+        gid = torch.repeat_interleave(gid, precompute)
     keys = gid * (half + 1) + digits  # (W, total)
     sorted_keys, order = torch.sort(keys, dim=1, stable=True)
     negs = torch.gather(neg, 1, order)
@@ -216,16 +356,59 @@ def sort_windows(scalars: torch.Tensor, group_sizes, c: int):
     return order.to(torch.int32), negs, ends.to(torch.int32)
 
 
-def msm_window_sums(scalars: torch.Tensor, group_sizes, points, c: int):
-    """Window sums of group-concatenated MSMs: scalars (8, total), points
-    affine (x, y) concatenated in the same lane order. Returns stacked
-    (3, coords..., G, W) projective Montgomery window sums."""
-    if scalars.shape[-1] != sum(group_sizes) or points[0].shape[-1] != scalars.shape[-1]:
-        raise ValueError("msm_window_sums: scalar and point lanes differ")
-    order, negs, ends = sort_windows(scalars, group_sizes, c)
+def _window_sums(scalars, groups_of, points, c: int, precompute: int):
+    groups = groups_of[1] if isinstance(groups_of, tuple) else len(groups_of)
+    order, negs, ends = sort_windows(scalars, groups_of, c, precompute)
     half = 1 << (c - 1)
-    buckets = msm_accumulate(points[0], points[1], order, negs, ends, len(group_sizes), half)
-    return msm_reduce(buckets, order.shape[0], len(group_sizes), half)
+    buckets = msm_accumulate(points[0], points[1], order, negs, ends, groups, half)
+    return msm_reduce(buckets, order.shape[0], groups, half)
+
+
+def msm_window_sums(scalars: torch.Tensor, group_sizes, points, c: int, precompute: int = 1):
+    """Window sums of group-concatenated MSMs: scalars (8, total), points
+    affine (x, y) concatenated in the same lane order (total * precompute
+    lanes in the `precompute_bases` layout). Returns stacked
+    (3, coords..., G, wp) projective Montgomery window sums."""
+    if (scalars.shape[-1] != sum(group_sizes)
+            or points[0].shape[-1] != scalars.shape[-1] * precompute):
+        raise ValueError("msm_window_sums: scalar and point lanes differ")
+    return _window_sums(scalars, list(group_sizes), points, c, precompute)
+
+
+def msm_windows_sliced(scalars: torch.Tensor, group_sizes, points, c: int, max_lanes: int,
+                       precompute: int = 1):
+    """Out-of-core window sums (icicle_snark_tpu/ops/msm.py
+    msm_windows_sliced): the concatenated lanes are cut into slices of
+    max_lanes // precompute scalars (group boundaries may fall inside a
+    slice; per-lane group ids keep the buckets apart), every slice runs
+    the in-core pipeline, and K6 adds the slices' window sums in slice
+    order. The last slice is padded to the slice width with lanes of the
+    sentinel group len(group_sizes), zero scalars and (0, 0) points, so
+    every slice has one shape. Returns stacked (3, coords..., G, wp)."""
+    total = sum(group_sizes)
+    if scalars.shape[-1] != total or points[0].shape[-1] != total * precompute:
+        raise ValueError("msm_windows_sliced: scalar and point lanes differ")
+    width = max_lanes // precompute
+    if width < 1:
+        raise ValueError(f"msm_windows_sliced: max_lanes {max_lanes} below the factor {precompute}")
+    groups = len(group_sizes)
+    dev = scalars.device
+    gid = torch.repeat_interleave(
+        torch.arange(groups, device=dev), torch.tensor(list(group_sizes), device=dev))
+    acc = None
+    for lo in range(0, max(total, 1), width):
+        hi = min(lo + width, total)
+        sc, ids = scalars[:, lo:hi], gid[lo:hi]
+        pts = tuple(p[..., precompute * lo: precompute * hi] for p in points)
+        pad = width - (hi - lo)
+        if pad:
+            sc = torch.cat([sc, sc.new_zeros((NLIMB, pad))], dim=-1)
+            ids = torch.cat([ids, ids.new_full((pad,), groups)])
+            pts = tuple(torch.cat([p, p.new_zeros(p.shape[:-1] + (pad * precompute,))], dim=-1)
+                        for p in pts)
+        ws = _window_sums(sc, (ids, groups), pts, c, precompute)
+        acc = ws if acc is None else acc_windows(acc, ws)
+    return acc
 
 
 # ---------------------------------------------------------------- host side

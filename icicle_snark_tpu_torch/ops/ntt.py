@@ -1,12 +1,19 @@
-"""Batched radix-2 NTT over BN254 Fr (kernel K3).
+"""Batched radix-2 NTT over BN254 Fr (kernels K3 and K5).
 
 The prove pipeline never needs natural->natural transforms: `intt_dif`
 takes natural-order values to BIT-REVERSED coefficients (Gentleman-Sande,
 scaled by 1/n), the coset key powers are gathered into bit-reversed order,
 and `ntt_dit` takes bit-reversed input to natural-order values
-(Cooley-Tukey), as in icicle_snark_tpu/ops/ntt.py. Each stage is one
-launch of `csrc/ntt.cu` for CUDA tensors, or its plain version
-`ntt_stage_plain` for CPU tensors.
+(Cooley-Tukey), as in icicle_snark_tpu/ops/ntt.py. `ntt_natural` wraps
+them in a bit-reversal gather.
+
+Two kernels run the same butterfly network. K3 (`csrc/ntt.cu`) is one
+stage per launch. K5 (`csrc/ntt_block.cu`) runs several consecutive
+stages per launch through shared memory; it is the large-domain transform,
+the port's counterpart of icicle_snark_tpu/ops/mxu_ntt.py, and is taken
+from `NTT_BLOCK_MIN_LOG` up. Every stage's outputs are canonical, so both
+give the same words. For CPU tensors each wrapper runs its plain version
+(`ntt_stage_plain`, `ntt_block_plain`).
 
 Data layout: (B, 8, n) int32, Montgomery form (fields/limbs.py).
 """
@@ -46,6 +53,15 @@ def powers_mont(base_int: int, log_n: int, device, spec=FR_SPEC) -> torch.Tensor
     return table
 
 
+def stage_major(tw: torch.Tensor) -> torch.Tensor:
+    """(8, n) powers w^0 .. w^(n-1) -> the stage-major (8, n) table: the
+    stage of span m = 2^s has its half-span of twiddles w^(j n / m),
+    j < m/2, in lanes [m/2 - 1, m - 1); the last lane is unused (zero)."""
+    n = tw.shape[-1]
+    parts = [tw[:, : n // 2: n // m] for m in (1 << s for s in range(1, n.bit_length()))]
+    return torch.cat(parts + [torch.zeros_like(tw[:, :1])], dim=-1).contiguous()
+
+
 class NTTDomain:
     """Twiddle tables of one transform size on one device (the analog of
     the reference's NTT domain)."""
@@ -58,6 +74,9 @@ class NTTDomain:
         self.w = W[log_n]
         self.tw_fwd = powers_mont(self.w, log_n, device)
         self.tw_inv = powers_mont(pow(self.w, -1, FR_SPEC.modulus), log_n, device)
+        # the same twiddles stage by stage, for K5
+        self.stw_fwd = stage_major(self.tw_fwd)
+        self.stw_inv = stage_major(self.tw_inv)
         self.n_inv_mont = lb.const(
             pow(self.n, -1, FR_SPEC.modulus) * FR_SPEC.r_mod % FR_SPEC.modulus, device)
         self.bitrev = torch.from_numpy(bitrev_permutation(log_n)).to(device)
@@ -69,11 +88,17 @@ def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
                     scale: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of K3: one butterfly stage of span m over
     (B, 8, n); returns the new tensor."""
+    n = x.shape[-1]
+    return _butterflies_plain(x, tw[:, : (m // 2) * (n // m): n // m], m, inverse, scale)
+
+
+def _butterflies_plain(x: torch.Tensor, w: torch.Tensor, m: int, inverse: bool,
+                       scale: torch.Tensor | None) -> torch.Tensor:
+    """One stage of span m over (B, 8, n) with its (8, m/2) twiddles given."""
     b, _, n = x.shape
     h = m // 2
     xr = x.reshape(b, NLIMB, n // m, 2, h).permute(0, 2, 3, 1, 4)  # (B, n/m, 2, 8, h)
     u, v = xr[:, :, 0], xr[:, :, 1]
-    w = tw[:, : h * (n // m): n // m]  # (8, h)
 
     def op(code, a, c):
         return lb.field_op_plain(code, a, c, FR_SPEC)
@@ -113,9 +138,99 @@ def ntt_stage(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
     )
 
 
+# ---------------------------------------------------------------- K5
+
+# Elements of one shared-memory tile (2^10 x 32 bytes = 32 KB), and the
+# fewest columns a tile of a strided pass keeps side by side, so that each
+# limb row is read 32 consecutive words at a time.
+NTT_TILE_LOG = 10
+NTT_TILE_MIN_COLS_LOG = 5
+# Domains of at least 2^NTT_BLOCK_MIN_LOG go through K5, smaller ones
+# through K3 stage by stage. On an H100 K5 was ahead at every size timed
+# from 2^2 to 2^21 at batch 3 and level with K3 at 2^1, where both make
+# two launches (chip_smoke.py `ntt_threshold_sweep`, PERF.md): below 2^14
+# both are bound by launches and K5 makes 2 where K3 makes 2 log n. So no
+# circuit's prove runs K3 by default; it stays as the stage-by-stage check
+# of K5. Raise the constant past the domain to force K3.
+NTT_BLOCK_MIN_LOG = 3
+
+
+def block_passes(log_n: int, tile_log: int | None = None):
+    """The passes of one transform as (low, k, tcols_log), in ascending
+    order of stages: pass (low, k, t) covers the spans 2^(low+1) ..
+    2^(low+k) on tiles of 2^k rows by 2^t columns. The first pass takes
+    the lowest min(tile_log, log_n) stages on contiguous tiles; the others
+    keep at least 2^NTT_TILE_MIN_COLS_LOG columns (half the tile's bits for
+    a small forced tile) and split the remaining stages evenly."""
+    tile_log = NTT_TILE_LOG if tile_log is None else tile_log
+    if tile_log < 1:
+        raise ValueError(f"block_passes: bad tile size 2^{tile_log}")
+    min_cols_log = min(NTT_TILE_MIN_COLS_LOG, tile_log // 2)
+    first = min(tile_log, log_n)
+    passes = [(0, first, 0)]
+    rest = log_n - first
+    if rest:
+        k_max = tile_log - min_cols_log
+        count = -(-rest // k_max)
+        low = first
+        for i in range(count):
+            k = rest // count + (1 if i < rest % count else 0)
+            passes.append((low, k, tile_log - k))
+            low += k
+    return passes
+
+
+def ntt_block_plain(x: torch.Tensor, stw: torch.Tensor, low: int, k: int, inverse: bool,
+                    scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K5: the stages of spans 2^(low+1) ..
+    2^(low+k), one plain stage each, in the kernel's order, with the
+    kernel's stage-major twiddle table `stw`."""
+    stages = range(low + k, low, -1) if inverse else range(low + 1, low + k + 1)
+    for s in stages:
+        h = 1 << (s - 1)
+        x = _butterflies_plain(x, stw[:, h - 1: 2 * h - 1], 2 * h, inverse,
+                               scale if inverse and s == 1 else None)
+    return x
+
+
+def ntt_block(x: torch.Tensor, tw: torch.Tensor, low: int, k: int, tcols_log: int,
+              inverse: bool, scale: torch.Tensor | None = None) -> None:
+    """k butterfly stages (spans 2^(low+1) .. 2^(low+k)) IN PLACE on x
+    (B, 8, n) int32, tiles of 2^k rows by 2^tcols_log columns; descending
+    DIF stages when inverse, else ascending DIT stages. `tw` is the
+    STAGE-MAJOR twiddle table (`stage_major`, NTTDomain.stw_*). `scale`
+    (8, 1) multiplies the outputs of the span-2 inverse stage."""
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != NLIMB or not x.is_contiguous():
+        raise ValueError(f"ntt_block: want contiguous int32 (B, 8, n), got {tuple(x.shape)}")
+    b, _, n = x.shape
+    log_n = n.bit_length() - 1
+    if (tw.shape != (NLIMB, n) or n != 1 << log_n or k < 1 or low < 0 or low + k > log_n
+            or not 0 <= tcols_log <= low):
+        raise ValueError(
+            f"ntt_block: bad twiddles {tuple(tw.shape)} or pass ({low}, {k}, {tcols_log}) for n={n}")
+    if x.device.type == "cpu":
+        x.copy_(ntt_block_plain(x, tw, low, k, inverse, scale))
+        return
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ntt_block: unsupported device {x.device}")
+    tw = tw.contiguous()
+    scale = None if scale is None else scale.contiguous()
+    kernels.NTT_BLOCK.launch(
+        x.data_ptr(), tw.data_ptr(), None if scale is None else scale.data_ptr(),
+        b, n, log_n, low, k, tcols_log, int(inverse),
+    )
+
+
+# ---------------------------------------------------------------- transforms
+
 def intt_dif(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
-    """Inverse NTT of (B, 8, n), natural input -> BIT-REVERSED output, times 1/n."""
+    """Inverse NTT of (B, 8, n), natural input -> BIT-REVERSED output, times
+    1/n. K5 from NTT_BLOCK_MIN_LOG up, else K3."""
     y = x.clone().contiguous()
+    if dom.log_n >= NTT_BLOCK_MIN_LOG:
+        for low, k, tcols in reversed(block_passes(dom.log_n)):
+            ntt_block(y, dom.stw_inv, low, k, tcols, True, dom.n_inv_mont if low == 0 else None)
+        return y
     for s in range(dom.log_n, 0, -1):
         m = 1 << s
         ntt_stage(y, dom.tw_inv, m, True, dom.n_inv_mont if m == 2 else None)
@@ -125,6 +240,18 @@ def intt_dif(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
 def ntt_dit(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
     """Forward NTT of (B, 8, n), BIT-REVERSED input -> natural output."""
     y = x.clone().contiguous()
+    if dom.log_n >= NTT_BLOCK_MIN_LOG:
+        for low, k, tcols in block_passes(dom.log_n):
+            ntt_block(y, dom.stw_fwd, low, k, tcols, False)
+        return y
     for s in range(1, dom.log_n + 1):
         ntt_stage(y, dom.tw_fwd, 1 << s, False)
     return y
+
+
+def ntt_natural(x: torch.Tensor, dom: NTTDomain, inverse: bool = False) -> torch.Tensor:
+    """Natural-order in and out (icicle_snark_tpu/ops/ntt.py ntt_natural):
+    the reorder-free pair with a bit-reversal gather on the reversed side."""
+    if inverse:
+        return intt_dif(x, dom)[..., dom.bitrev]
+    return ntt_dit(x[..., dom.bitrev], dom)

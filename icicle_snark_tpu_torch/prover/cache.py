@@ -9,7 +9,11 @@ and the coefficient table, build the R1CS plan and the coset key powers.
   * The R1CS plan is CSR: records sorted by output slot (torch.sort),
     per-slot counts (bincount) and row offsets (cumsum). Kernel K2 reduces
     each row mod r term by term, so one level serves every fan-in.
-  * Precompute factor 1: the MSM bases are the zkey's points as they are.
+  * The MSM plan ((c, f) for the grouped G1 MSM and for the G2 MSM) is
+    baked in at cache build: with a precompute factor f > 1 the bases are
+    the f interleaved shifted copies of ops/msm.py `precompute_bases`
+    (kernel K7), shifted for exactly that window size. The default plan is
+    `msm_ops.choose_c_pre` (factor 1: the zkey's points as they are).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..curve import jcurve as jc
 from ..fields.limbs import words_to_limbs
 from ..io.zkey import ZKeyFile, ZKeyHeader
 from ..ops import msm as msm_ops
@@ -49,23 +54,27 @@ class R1CSPlan:
 class ZKeyCache:
     header: ZKeyHeader
     plan: R1CSPlan
-    points_a: tuple    # (x, y): each (8, n_vars) Montgomery affine
+    points_a: tuple    # (x, y): each (8, n_vars * msm_pre) Montgomery affine
     points_b1: tuple
-    points_b2: tuple   # (x, y): each (2, 8, n_vars)
+    points_b2: tuple   # (x, y): each (2, 8, n_vars * msm_pre2)
     points_c: tuple
     points_h: tuple
     keys: torch.Tensor  # (8, n) Montgomery coset key powers, NATURAL order
     domain: NTTDomain
-    msm_c: int = 0     # G1 grouped window size
+    msm_c: int = 0     # G1 grouped window size (0: chosen here)
     msm_c2: int = 0    # G2 window size
+    msm_pre: int = 1   # G1 precompute factor the points were built with
+    msm_pre2: int = 1  # G2 precompute factor
     g1_points: tuple = field(init=False)  # A|B1|C|H concatenated (x, y)
+    g1_sizes: list = field(init=False)    # scalar lanes of each G1 group
 
     def __post_init__(self):
         groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
         self.g1_points = tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2))
-        self.g1_sizes = [g[0].shape[-1] for g in groups]
-        self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), groups=4)
-        self.msm_c2 = self.msm_c2 or msm_ops.choose_c(self.points_b2[0].shape[-1], groups=1)
+        self.g1_sizes = [g[0].shape[-1] // self.msm_pre for g in groups]
+        self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), 4, self.msm_pre)
+        self.msm_c2 = self.msm_c2 or msm_ops.choose_c(
+            self.points_b2[0].shape[-1] // self.msm_pre2, 1, self.msm_pre2)
 
 
 def build_r1cs_plan(slots: torch.Tensor, witness_idx: torch.Tensor,
@@ -99,11 +108,22 @@ def _g2(words, dev) -> tuple:
     return (x, y)
 
 
-def load_zkey_cache(zkey_path: str, device="cuda") -> ZKeyCache:
+def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None) -> ZKeyCache:
+    """Parse the zkey and build the device cache. `msm_plan` is
+    ((c1, f1), (c2, f2)), window size and precompute factor of the grouped
+    G1 MSM and of the G2 MSM; None takes `msm_ops.choose_c_pre`."""
     dev = require_device(device)
     zk = ZKeyFile(zkey_path)
     hdr = zk.header
     n = hdr.domain_size
+    if msm_plan is None:
+        total_g1 = 3 * hdr.n_vars - (hdr.n_public + 1) + n  # a + b1 + c + h lanes
+        msm_plan = (msm_ops.choose_c_pre(total_g1, groups=4),
+                    msm_ops.choose_c_pre(hdr.n_vars, groups=1, g2=True))
+    (c1, f1), (c2, f2) = msm_plan
+
+    def pre1(points):
+        return msm_ops.precompute_bases(points, jc.G1, c1, f1)
 
     m_arr, c_arr, s_arr, coef_words = zk.coefficients()
     slots = (torch.from_numpy(m_arr.astype("int64")) * n
@@ -117,13 +137,14 @@ def load_zkey_cache(zkey_path: str, device="cuda") -> ZKeyCache:
     return ZKeyCache(
         header=hdr,
         plan=plan,
-        points_a=_g1(zk.points_a(), dev),
-        points_b1=_g1(zk.points_b1(), dev),
-        points_b2=_g2(zk.points_b2(), dev),
-        points_c=_g1(zk.points_c(), dev),
-        points_h=_g1(zk.points_h(), dev),
+        points_a=pre1(_g1(zk.points_a(), dev)),
+        points_b1=pre1(_g1(zk.points_b1(), dev)),
+        points_b2=msm_ops.precompute_bases(_g2(zk.points_b2(), dev), jc.G2, c2, f2),
+        points_c=pre1(_g1(zk.points_c(), dev)),
+        points_h=pre1(_g1(zk.points_h(), dev)),
         keys=keys,
         domain=NTTDomain(hdr.power, dev),
+        msm_c=c1, msm_c2=c2, msm_pre=f1, msm_pre2=f2,
     )
 
 
@@ -131,8 +152,9 @@ class CacheManager:
     """Keyed zkey cache surviving across prove calls (reference:
     CacheManager, src/cache.rs:110-262), for one device."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", msm_plan=None):
         self.device = require_device(device)
+        self.msm_plan = msm_plan  # None: the default plan of load_zkey_cache
         self._caches: dict = {}
 
     def contains(self, zkey_path: str) -> bool:
@@ -140,5 +162,5 @@ class CacheManager:
 
     def get(self, zkey_path: str) -> ZKeyCache:
         if zkey_path not in self._caches:
-            self._caches[zkey_path] = load_zkey_cache(zkey_path, self.device)
+            self._caches[zkey_path] = load_zkey_cache(zkey_path, self.device, self.msm_plan)
         return self._caches[zkey_path]

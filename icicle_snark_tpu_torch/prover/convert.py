@@ -31,16 +31,17 @@ def _g2(pt, dev) -> tuple:
 
 def cache_from_jax_arrays(header, *, coefs, witness_idx, segments, level2,
                           points_a, points_b1, points_b2, points_c, points_h,
-                          keys, msm_pre: int = 1, msm_pre2: int = 1,
-                          device="cpu") -> ZKeyCache:
+                          keys, msm_c: int = 0, msm_pre: int = 1, msm_c2: int = 0,
+                          msm_pre2: int = 1, device="cpu") -> ZKeyCache:
     """header: the zkey header (either package's ZKeyHeader; fields are
     read by name). coefs (16, nnz); witness_idx, segments (nnz,); level2
-    None or (segments2, num_segments2); points as JAX affine (x, y); keys
-    (16, n) natural-order coset powers. Raises for precompute factor > 1
-    (the port's bases are the zkey points as they are)."""
-    if msm_pre != 1 or msm_pre2 != 1:
-        raise ValueError(
-            f"JAX cache built with precompute factor {msm_pre}/{msm_pre2}: the port takes 1")
+    None or (segments2, num_segments2); points as JAX affine (x, y), with
+    msm_pre / msm_pre2 interleaved precompute copies per base (the two
+    packages share that layout, so only the limbs are repacked); keys
+    (16, n) natural-order coset powers. msm_c / msm_c2 are the window
+    sizes the copies were shifted for: required when a factor is above 1."""
+    if (msm_pre > 1 and not msm_c) or (msm_pre2 > 1 and not msm_c2):
+        raise ValueError("a cache with precomputed bases needs the window size they were built for")
     dev = torch.device(device)
     n = header.domain_size
     seg = np.asarray(segments).astype(np.int64)
@@ -62,4 +63,5 @@ def cache_from_jax_arrays(header, *, coefs, witness_idx, segments, level2,
         points_h=_g1(points_h, dev),
         keys=_t(from_jax_limbs(keys), dev),
         domain=NTTDomain(header.power, dev),
+        msm_c=msm_c, msm_c2=msm_c2, msm_pre=msm_pre, msm_pre2=msm_pre2,
     )

@@ -1,4 +1,4 @@
-"""The Groth16 prove pipeline on the GPU (kernels K1-K4).
+"""The Groth16 prove pipeline on the GPU (kernels K1-K7).
 
 Mirrors the reference's value flow (src/proof_helper.rs:31-317) and the
 JAX package's pipeline (icicle_snark_tpu/prover/pipeline.py), so proofs are
@@ -9,9 +9,9 @@ byte-identical:
   witness ingest       (n, 8) words -> (8, n) limbs (transpose)  -
   R1CS evaluation      CSR rows: sum_j coef*w mod r, then REDC   K2
   A*B -> C             Montgomery product                        K1
-  coset evaluation     bit-reversed INTT, key powers, NTT        K3, K1
+  coset evaluation     bit-reversed INTT, key powers, NTT        K3/K5, K1
   h values             (A*B - C) on the coset, times R^2         K1
-  5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2)        K4
+  5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2)        K4 (K6 sliced)
   randomization        host projective ops (refmath)             -
   serialization        decimal strings                           -
 
@@ -23,6 +23,19 @@ Montgomery bookkeeping (R = 2^256, the snarkjs on-disk radix):
   coset  = mont_mul(x, key*R) = x*key                  (factors preserved)
   h_raw  = mont_mul(A_odd, B_odd) - C_odd              == h*R^-1
   h      = mont_mul(h_raw, R^2)                        (the H MSM scalar integers)
+
+Large circuits take the same code. The JAX package switches to a matmul
+NTT from 2^18, to an out-of-core MSM past 2^21 lanes and, at 2^22, to h
+values staged one polynomial at a time with a forced fetch between the
+stages, because its one-shot graph did not fit its chip's memory. Here the
+NTT picks K5 from the domain size (ops/ntt.py), the MSM slices only past
+`msm_ops.MSM_MAX_LANES` point lanes, and `construct_r1cs` has NO staged
+variant: at the largest supported domain, 2^22, the (3, 8, 2^22) int32
+batch is 3 * 8 * 4 * 2^22 = 403 MB, and the one-shot flow holds at most the
+A/B evaluations (268 MB), the batch, its transform and the shifted copy
+(3 x 403 MB), three (8, 2^22) temporaries (403 MB), the key powers and two
+twiddle tables (403 MB) and the gathered bit-reversed keys (134 MB): under
+3 GB of an 80 GB card.
 """
 
 from __future__ import annotations
@@ -117,8 +130,19 @@ def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: Z
     npub = cache.header.n_public
     scalars = torch.cat([witness, witness, witness[:, npub + 1:], h_scalars], dim=-1)
     c, c2 = cache.msm_c, cache.msm_c2
-    ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_points, c)
-    ws2 = msm_ops.msm_window_sums(witness, [witness.shape[-1]], cache.points_b2, c2)
+    pre, pre2 = cache.msm_pre, cache.msm_pre2
+    # past the cap on point lanes the MSM runs in slices (G2: half the cap,
+    # its points are twice the bytes)
+    cap, cap2 = msm_ops.MSM_MAX_LANES, msm_ops.MSM_MAX_LANES // 2
+    if scalars.shape[-1] * pre > cap:
+        ws1 = msm_ops.msm_windows_sliced(scalars, cache.g1_sizes, cache.g1_points, c, cap, pre)
+    else:
+        ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_points, c, pre)
+    n2 = witness.shape[-1]
+    if n2 * pre2 > cap2:
+        ws2 = msm_ops.msm_windows_sliced(witness, [n2], cache.points_b2, c2, cap2, pre2)
+    else:
+        ws2 = msm_ops.msm_window_sums(witness, [n2], cache.points_b2, c2, pre2)
     ws1_np, ws2_np = ws1.cpu().numpy(), ws2.cpu().numpy()
     pi_a, pi_b1, pi_c, pi_h = (
         msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1_np, g), c)

@@ -8,7 +8,7 @@ per constraint). As in icicle_snark_tpu/setup/fast_setup.py:
   * the device gathers T[w][digit_w(k_i)] and mixed-adds over 32 steps,
     n lanes in parallel: the port's plain-torch `pmadd` over CUDA tensors,
     so every field operation is a K1 launch,
-  * projective -> affine by a per-lane Fermat inverse (K1 products),
+  * projective -> affine by a per-lane Fermat inverse (K7 point_to_affine),
   * coordinates come back Montgomery-form and are written to the zkey
     byte-for-byte identical to the host oracle's output.
 """

@@ -143,5 +143,29 @@ def test_signed_digits_recombine():
 
 
 def test_choose_c_counts_additions():
+    """The cost model assumes scalars spread evenly below the group order r
+    (the h coefficients of every prove are; a witness of small values
+    leaves the high windows empty and is not modelled)."""
     assert 8 <= msm.choose_c(100, 4) <= msm.choose_c(431079, 4) <= 16
-    assert msm.choose_c(431079, 4) == 13
+    # the serial chains count: c = 13 and 14 crowd the top window's lanes
+    # into 128 and 4 buckets, so the complex-100k MSMs take c = 15
+    assert msm.choose_c(431079, 4) == 15
+    assert msm.choose_c(100003, 1) == 15
+    assert msm.choose_c(6897159, 4) == 16 and msm.choose_c(1600003, 1) == 15
+    assert msm.choose_c(64, 1) == 8
+
+
+@pytest.mark.parametrize("c", [13, 14, 15, 16])
+def test_choose_c_top_window_of_uniform_scalars(c):
+    """What `choose_c` assumes of the data: scalars uniform below r fill
+    only 2^(254 - c * floor(253 / c)) buckets of the top window, and every
+    lower window's whole range."""
+    rng = np.random.default_rng(c)
+    vals = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(4096)]
+    ab, _neg = msm.window_digits_signed(lb.ints_to_limbs(vals), c)
+    top = 253 // c
+    top_bits = msm.SCALAR_DATA_BITS - top * c
+    assert ab.shape[0] == -(-256 // c) and not ab[top + 1:].any()
+    limit = min(1 << (c - 1), 1 << top_bits)
+    assert limit // 2 < int(ab[top].max()) <= limit + 1
+    assert int(ab[top - 1].max()) > 1 << (c - 2)

@@ -1,0 +1,194 @@
+"""The port's out-of-core MSM (per-lane group ids, K4 on slices, K6
+accumulation; plain versions on the CPU) against the JAX package's
+`msm_windows_sliced` and `_acc_windows` and the refmath oracle, on the
+inputs of tests/test_msm_units.py (group boundaries inside slices, a padded
+tail): window sums equal as AFFINE points, final points equal, G1 and G2."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icicle_snark_tpu.fields import limbs as jlb
+from icicle_snark_tpu.ops import msm as jmsm
+from icicle_snark_tpu_torch.curve import jcurve as jc
+from icicle_snark_tpu_torch.fields import limbs as lb
+from icicle_snark_tpu_torch.ops import msm
+from icicle_snark_tpu_torch.refmath import curve as cv
+from icicle_snark_tpu_torch.refmath.field import R_MOD, fq_to_mont
+
+# Several test workers share the machine's cores: one intra-op thread each.
+torch.set_num_threads(1)
+
+C = 8
+
+
+def _g1_aff(n):
+    rng = np.random.default_rng(3)
+    return [cv.g1_to_affine(cv.g1_mul(cv.G1_GEN, int(k))) for k in rng.integers(1, 1 << 20, size=n)]
+
+
+def _g2_aff(n):
+    rng = np.random.default_rng(4)
+    aff = [cv.g2_to_affine(cv.g2_mul(cv.G2_GEN, int(k))) for k in rng.integers(1, 1 << 20, size=n)]
+    aff[1] = ((0, 0), (0, 0))
+    return aff
+
+
+def _port_g1(aff):
+    return tuple(lb.ints_to_limbs([fq_to_mont(a[i]) for a in aff]) for i in range(2))
+
+
+def _jax_g1(aff):
+    return tuple(jnp.asarray(jlb.ints_to_limbs_np([fq_to_mont(a[i]) for a in aff])) for i in range(2))
+
+
+def _port_g2(aff):
+    return tuple(torch.stack([lb.ints_to_limbs([fq_to_mont(a[i][c]) for a in aff])
+                              for c in range(2)]) for i in range(2))
+
+
+def _jax_g2(aff):
+    return tuple(jnp.asarray(np.stack(
+        [jlb.ints_to_limbs_np([fq_to_mont(a[i][c]) for a in aff]) for c in range(2)], axis=1))
+        for i in range(2))
+
+
+def _oracle(vals, aff, g2=False):
+    add, mul, frm, zero = ((cv.g2_add, cv.g2_mul, cv.g2_from_affine, cv.G2_ZERO) if g2 else
+                           (cv.g1_add, cv.g1_mul, cv.g1_from_affine, cv.G1_ZERO))
+    acc = zero
+    for v, a in zip(vals, aff):
+        acc = add(acc, mul(frm(a), v))
+    return acc
+
+
+def _affine_windows(ws, g, g2=False):
+    if g2:
+        return [cv.g2_to_affine(p) for p in msm.window_points_to_host_g2(ws, g)]
+    return [cv.g1_to_affine(p) for p in msm.window_points_to_host_g1(ws, g)]
+
+
+def test_sliced_grouped_g1_matches_direct_jax_and_oracle():
+    """Groups of 40, 64 and 24 lanes in slices of 48: boundaries inside
+    slices and a tail padded by 16 sentinel lanes."""
+    aff = _g1_aff(64)
+    rng = np.random.default_rng(23)
+    sizes, vals, pts, jgroups = (40, 64, 24), [], [], []
+    for n_g in sizes:
+        v = [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=n_g, dtype=np.uint64)]
+        vals.append(v)
+        pts.append(aff[:n_g])
+        jgroups.append((jnp.asarray(jlb.ints_to_limbs_np(v)), _jax_g1(aff[:n_g])))
+    scalars = lb.ints_to_limbs([x for v in vals for x in v])
+    points = _port_g1([a for p in pts for a in p])
+    direct = msm.msm_window_sums(scalars, sizes, points, C).numpy()
+    sliced = msm.msm_windows_sliced(scalars, sizes, points, C, max_lanes=48).numpy()
+    jws = np.asarray(jmsm.msm_windows_sliced(jgroups, C, 8, False, max_lanes=48))
+    for g in range(3):
+        mine = _affine_windows(sliced, g)
+        assert mine == _affine_windows(direct, g)
+        assert mine == [cv.g1_to_affine(p) for p in jmsm.window_points_to_host_g1(jws, g)]
+        got = msm.horner_combine(msm.window_points_to_host_g1(sliced, g), C)
+        assert cv.g1_eq(got, _oracle(vals[g], pts[g]))
+
+
+def test_sliced_g2_matches_direct_jax_and_oracle():
+    """One G2 group of 20 lanes (one at infinity) in slices of 8: a tail
+    padded by 4 lanes."""
+    aff = _g2_aff(20)
+    rng = np.random.default_rng(29)
+    vals = [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=20, dtype=np.uint64)]
+    scalars, points = lb.ints_to_limbs(vals), _port_g2(aff)
+    direct = msm.msm_window_sums(scalars, [20], points, C).numpy()
+    sliced = msm.msm_windows_sliced(scalars, [20], points, C, max_lanes=8).numpy()
+    jws = np.asarray(jmsm.msm_windows_sliced(
+        [(jnp.asarray(jlb.ints_to_limbs_np(vals)), _jax_g2(aff))], C, 8, True, max_lanes=8))
+    mine = _affine_windows(sliced, 0, g2=True)
+    assert mine == _affine_windows(direct, 0, g2=True)
+    assert mine == [cv.g2_to_affine(p) for p in jmsm.window_points_to_host_g2(jws, 0)]
+    got = msm.horner_combine(msm.window_points_to_host_g2(sliced, 0), C, g2=True)
+    assert cv.g2_eq(got, _oracle(vals, aff, g2=True))
+
+
+@pytest.mark.parametrize("sizes,max_lanes", [
+    ((16, 16), 16),   # every slice holds one group only; no padded tail
+    ((5, 11), 32),    # one slice, padded by 16
+    ((7, 9, 8), 6),   # four slices, the second group over three of them
+], ids=["one-group-slices", "single-padded-slice", "group-over-three-slices"])
+def test_sliced_edge_cases_equal_direct(sizes, max_lanes):
+    aff = _g1_aff(sum(sizes))
+    aff[2] = (0, 0)
+    rng = np.random.default_rng(sum(sizes))
+    vals = [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=sum(sizes), dtype=np.uint64)]
+    vals[0], vals[1] = 0, R_MOD - 1
+    scalars, points = lb.ints_to_limbs(vals), _port_g1(aff)
+    direct = msm.msm_window_sums(scalars, sizes, points, C).numpy()
+    sliced = msm.msm_windows_sliced(scalars, sizes, points, C, max_lanes).numpy()
+    lo = 0
+    for g, n_g in enumerate(sizes):
+        assert _affine_windows(sliced, g) == _affine_windows(direct, g)
+        got = msm.horner_combine(msm.window_points_to_host_g1(sliced, g), C)
+        assert cv.g1_eq(got, _oracle(vals[lo:lo + n_g], aff[lo:lo + n_g]))
+        lo += n_g
+
+
+def test_sort_windows_takes_group_ids_and_a_sentinel():
+    rng = np.random.default_rng(5)
+    vals = [int(x) for x in rng.integers(0, 1 << 62, size=12, dtype=np.uint64)]
+    scalars = lb.ints_to_limbs(vals)
+    by_size = msm.sort_windows(scalars, [5, 7], C)
+    gid = torch.tensor([0] * 5 + [1] * 7)
+    by_gid = msm.sort_windows(scalars, (gid, 2), C)
+    assert all(torch.equal(a, b) for a, b in zip(by_size, by_gid))
+    # sentinel lanes (group id 2) sort last and fall in no bucket
+    padded = torch.cat([scalars, lb.ints_to_limbs([123456789] * 4)], dim=-1)
+    order, _negs, ends = msm.sort_windows(padded, (torch.cat([gid, torch.full((4,), 2)]), 2), C)
+    assert torch.equal(ends, by_size[2])
+    assert order[:, -4:].min() >= 12
+    with pytest.raises(ValueError):
+        msm.msm_windows_sliced(scalars, [5, 6], _port_g1(_g1_aff(12)), C, 8)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_acc_windows_matches_jax_with_identities(g2):
+    """K6's plain version against _acc_windows on (3, coords, G=2, W=4)
+    stacks: random points, the identity on the left, on the right and on
+    both sides, P + P and P + (-P)."""
+    ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
+    mul, gen, to_aff = ((cv.g2_mul, cv.G2_GEN, cv.g2_to_affine) if g2 else
+                        (cv.g1_mul, cv.G1_GEN, cv.g1_to_affine))
+    rng = np.random.default_rng(31 + g2)
+    a_aff = [to_aff(mul(gen, int(k))) for k in rng.integers(1, 1 << 30, size=8)]
+    b_aff = [to_aff(mul(gen, int(k))) for k in rng.integers(1, 1 << 30, size=8)]
+    b_aff[3] = a_aff[3]                                        # P + P
+    b_aff[4] = to_aff((cv.g2_neg if g2 else cv.g1_neg)(
+        (cv.g2_from_affine if g2 else cv.g1_from_affine)(a_aff[4])))  # P + (-P)
+    coords = _port_g2 if g2 else _port_g1
+
+    def stack(aff, identity_lanes):
+        x, y = coords(aff)
+        one = jc.identity(ops, 8, "cpu")[1]
+        p = jc.point_stack((x, y, one))
+        ident = jc.point_stack(jc.identity(ops, 8, "cpu"))
+        mask = torch.zeros(8, dtype=torch.bool)
+        mask[identity_lanes] = True
+        return torch.where(mask, ident, p).reshape(p.shape[:-1] + (2, 4)).contiguous()
+
+    acc, new = stack(a_aff, [0, 2]), stack(b_aff, [1, 2])
+    got = msm.acc_windows(acc, new)
+    assert got.shape == acc.shape
+    jacc, jnew = (jnp.asarray(np.moveaxis(lb.to_jax_limbs(np.moveaxis(t.numpy(), -3, 0)), 0, 1)
+                              if not g2 else
+                              np.moveaxis(lb.to_jax_limbs(np.moveaxis(t.numpy(), -3, 0)), (0, 1, 2), (1, 0, 2)))
+                  for t in (acc, new))
+    want = np.asarray(jmsm._acc_windows(g2, jacc, jnew))
+    host = msm.window_points_to_host_g2 if g2 else msm.window_points_to_host_g1
+    jhost = jmsm.window_points_to_host_g2 if g2 else jmsm.window_points_to_host_g1
+    for g in range(2):
+        assert [to_aff(p) for p in host(got.numpy(), g)] == [to_aff(p) for p in jhost(want, g)]
+    flat = [to_aff(p) for g in range(2) for p in host(got.numpy(), g)]
+    zero = ((0, 0), (0, 0)) if g2 else (0, 0)
+    assert flat[0] == b_aff[0] and flat[1] == a_aff[1] and flat[2] == zero and flat[4] == zero
+    with pytest.raises(ValueError):
+        msm.acc_windows(acc, new[..., :3])
