@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py        # complex-100k and complex-1600k, the full check
     python3 chip_smoke.py --constraints 2000 --large-constraints 20000   # a rehearsal
+    python3 chip_smoke.py --bits-only   # the MSM on a bit-valued witness, nothing else
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -17,15 +18,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
   4. prove through the port's API: a cold first prove, three warm proves
      with per-phase times, a deterministic and a randomized proof that both
      verify, and launch counts showing the kernels ran during one prove;
+     proves with a bit-valued witness (msm phase, K4's device time);
   5. complex-N again with the JAX package's own MSM plan, G1 (13, 1) and
      G2 (13, 4) precomputed bases: the deterministic proof equals phase 4's
-     byte for byte; the G1 and G2 MSMs timed at several (c, f);
+     byte for byte; the G1 and G2 MSMs timed at c = 12..16 and a few f;
   6. complex-M, the large circuit (default 1 600 000 constraints, domain
-     2^21): device setup, cold cache, first prove, three warm proves, a
-     profiled prove; four deterministic proofs (default in-core route with
-     K5, NTT forced to K3, MSM forced into slices of 2^21 lanes with K6,
-     G2 bases precomputed with factor 2) that must be byte-identical; a
-     deterministic and a randomized proof verify;
+     2^21): device setup, cold cache; K4 against its plain versions on a
+     bit-valued witness (A, B1, C, B2 scalars in {0, 1}, uniform h) and
+     timed beside uniform scalars; K4's constants swept; first prove, three
+     warm proves, a profiled prove, proves with the bit-valued witness;
+     four deterministic proofs (default in-core route with K5, NTT forced
+     to K3, MSM forced into slices of 2^21 lanes with K6, G2 bases
+     precomputed with factor 2) that must be byte-identical; a
+     deterministic and a randomized proof verify; the MSMs at c = 12..16;
   7. the probe entry point (K8), every (op, W);
   8. complex(40, 50): the port's device setup gives the host oracle's zkey
      byte for byte, and its deterministic proof (through the CLI worker on
@@ -315,49 +320,26 @@ def check_msm(rep, rng, cache, dev, g2: bool, large: bool = False):
 
     ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
     tag = "g2" if g2 else "g1"
-    if g2:
-        sizes, points, c = [cache.points_b2[0].shape[-1]], cache.points_b2, cache.msm_c2
-    else:
-        sizes, points, c = cache.g1_sizes, cache.g1_points, cache.msm_c
+    sizes, records, c = _msm_shape(cache, g2)
     total = sum(sizes)
     full_sc = random_field(rng, lb.FR_SPEC.modulus, (total,), dev)
-    cases = [("main", full_sc, sizes, points, c)]
+    cases = [("main", full_sc, sizes, records, c)]
     if not large:
         edge_sc, edge_pts = _edge_msm_inputs(rng, dev, g2)
-        cases.insert(0, ("edge", edge_sc, [edge_sc.shape[-1]], edge_pts, 8))
+        cases.insert(0, ("edge", edge_sc, [edge_sc.shape[-1]], msm.point_records(edge_pts), 8))
     ok = True
-    for label, sc, szs, pts, cc in cases:
+    for label, sc, szs, rec, cc in cases:
         half, groups = 1 << (cc - 1), len(szs)
         order, negs, ends = msm.sort_windows(sc, szs, cc)
         windows = order.shape[0]
         acc_err, red_err, bp, acc_plain, red_plain = _msm_against_plain(
-            ops, pts, order, negs, ends, windows, groups, half, label, tag, sc, cc,
+            ops, rec, order, negs, ends, windows, groups, half, label, tag, sc, cc,
             time.perf_counter())
         ok &= acc_err == 0 and red_err == 0
         if label != "main":
             continue
-
-        acc_ms = cuda_time(
-            lambda: msm.msm_accumulate(pts[0], pts[1], order, negs, ends, groups, half), 3)
-        red_ms = cuda_time(lambda: msm.msm_reduce(bp, windows, groups, half), 3)
-        # data-dependent work: one mixed add per nonzero digit on a finite point
-        digits, _ = msm.window_digits_signed(sc, cc)
-        zx, zy = (lb.is_zero(t).all(0) if g2 else lb.is_zero(t) for t in pts)
-        madds = int(((digits != 0) & ~(zx & zy)).sum())
-        del digits
-        words = 16 if g2 else 8
-        nbk = windows * groups * half
-        acc_bound = bound(total * 2 * words * 4 + windows * total * 5 + ends.numel() * 4
-                          + nbk * 3 * words * 4, madds * FQ_MULS[tag]["madd"] * MULS_PER_MONT)
-        # sum_b b * B_b over H buckets: a running-sum triangle, 2(H - 1)
-        # general adds per (window, group); K4's segment split adds more
-        adds = windows * groups * 2 * (half - 1)
-        red_bound = bound(nbk * 3 * words * 4 + windows * groups * 3 * words * 4,
-                          adds * FQ_MULS[tag]["add"] * MULS_PER_MONT)
-        runs = torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
-        runs = runs.reshape(windows, groups, half + 1)[..., 1:]  # digit 0 has no bucket
-        what = (f"{tag}: {total} lanes, {windows} windows, c {cc}, longest bucket run "
-                f"{int(runs.max())}; kernel and plain version on the same lanes")
+        acc_ms, red_ms, acc_bound, red_bound, what = _k4_times(rec, sc, order, negs, ends, groups,
+                                                               cc, bp, tag)
         _accumulate_row(rep, kernels.MSM_ACCUMULATE.name, acc_err, acc_ms, acc_plain, acc_bound,
                         what, large)
         _accumulate_row(rep, kernels.MSM_REDUCE.name, red_err, red_ms, red_plain, red_bound,
@@ -365,7 +347,50 @@ def check_msm(rep, rng, cache, dev, g2: bool, large: bool = False):
     return ok
 
 
-def _msm_against_plain(ops, pts, order, negs, ends, windows, groups, half, label, tag, sc, cc, t0):
+def _msm_shape(cache, g2: bool):
+    """(group sizes, point records, window size) of the prove's G1 or G2 MSM."""
+    if g2:
+        return [cache.b2_records.shape[0]], cache.b2_records, cache.msm_c2
+    return cache.g1_sizes, cache.g1_records, cache.msm_c
+
+
+def _k4_times(rec, sc, order, negs, ends, groups, c, bp, tag, reps=3):
+    """K4 accumulate and reduce timed (CUDA events) on one MSM's sorted
+    lanes, with their bounds and a description of the case."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+
+    windows, total = order.shape
+    half = 1 << (c - 1)
+    acc_ms = cuda_time(lambda: msm.msm_accumulate(rec, order, negs, ends, groups, half), reps)
+    red_ms = cuda_time(lambda: msm.msm_reduce(bp, windows, groups, half), reps)
+    # data-dependent work: one mixed add per nonzero digit on a finite point
+    digits, _ = msm.window_digits_signed(sc, c)
+    inf = lb.is_zero(rec.T.contiguous())
+    madds = int(((digits != 0) & ~inf).sum())
+    del digits, inf
+    words = 16 if tag == "g2" else 8
+    nbk = windows * groups * half
+    acc_bound = bound(total * 2 * words * 4 + windows * total * 5 + ends.numel() * 4
+                      + nbk * 3 * words * 4, madds * FQ_MULS[tag]["madd"] * MULS_PER_MONT)
+    # sum_b b * B_b over H buckets: a running-sum triangle, 2(H - 1)
+    # general adds per (window, group)
+    adds = windows * groups * 2 * (half - 1)
+    red_bound = bound(nbk * 3 * words * 4 + windows * groups * 3 * words * 4,
+                      adds * FQ_MULS[tag]["add"] * MULS_PER_MONT)
+    runs = torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
+    runs = runs.reshape(windows, groups, half + 1)[..., 1:]  # digit 0 has no bucket
+    levels = len(msm.bucket_fold_plan(ends, windows, groups, half, total))
+    what = (f"{tag}: {total} lanes, {windows} windows, c {c}, longest bucket run "
+            f"{int(runs.max())}, {levels} accumulate levels (L {msm.BUCKET_PIECE}), reduce s "
+            f"{msm.REDUCE_SEG} nt {msm.reduce_shape(half)[2]}; kernel and plain version on the "
+            f"same lanes")
+    return acc_ms, red_ms, acc_bound, red_bound, what
+
+
+def _msm_against_plain(ops, rec, order, negs, ends, windows, groups, half, label, tag, sc, cc, t0):
     """K4's two kernels against their plain versions on one MSM; returns
     (accumulate err, reduce err, plain buckets, plain accumulate ms, plain
     reduce ms)."""
@@ -373,9 +398,9 @@ def _msm_against_plain(ops, pts, order, negs, ends, windows, groups, half, label
 
     from icicle_snark_tpu_torch.ops import msm
 
-    bk = msm.msm_accumulate(pts[0], pts[1], order, negs, ends, groups, half)
+    bk = msm.msm_accumulate(rec, order, negs, ends, groups, half)
     bp, acc_plain = timed_once(
-        lambda: msm.msm_accumulate_plain(pts[0], pts[1], order, negs, ends, groups, half))
+        lambda: msm.msm_accumulate_plain(rec, order, negs, ends, groups, half))
     acc_err = _points_err(ops, bk, bp)
     wk = msm.msm_reduce(bp, windows, groups, half)
     wp, red_plain = timed_once(lambda: msm.msm_reduce_plain(bp, windows, groups, half))
@@ -409,6 +434,174 @@ def _accumulate_row(rep, name, err, ms, plain_ms, bnd, what, large=False):
                bound_ms=row["bound_ms"] + bnd[0],
                bound_by=row["bound_by"] if row["bound_by"] == bnd[1] else "operations",
                timed=row["timed"] + "; " + what)
+
+
+# ---------------------------------------------------------------- K4 on a bit-valued witness
+
+def write_bits_witness(wtns_path: str, n_public: int, seed: int) -> str:
+    """The fixture's witness with every signal past the public ones set to
+    a random bit, as most signals of a circom witness are 0 or 1. The
+    constraints no longer hold: what this input exercises is the MSM, whose
+    scalars are these values and the h they give. Returns the new path."""
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile, write_wtns
+
+    wf = WtnsFile(wtns_path)
+    head = wf.witness_ints(0, n_public + 1)
+    bits = np.random.default_rng(seed).integers(0, 2, size=wf.header.n_witness - n_public - 1)
+    path = wtns_path[:-len(".wtns")] + "_bits.wtns"
+    write_wtns(path, head + bits.tolist())
+    return path
+
+
+def kernel_device_ms(fn, match) -> tuple:
+    """One call of fn under torch.profiler: (device ms per CUDA kernel name
+    that `match` accepts, summed over launches; the other device ms; the
+    wall ms of the call, ending in a synchronise)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per, other = {}, 0.0
+    # device-side events only (kernels, copies, fills): the host ops that
+    # launched them would count the same time again
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.time_range.elapsed_us() / 1e3
+        if match(evt.name):
+            # "void msm_accumulate_kernel<E2, true>(...)" -> "msm_accumulate_kernel<E2, true>"
+            name = evt.name.split("(")[0].removeprefix("void ")
+            per[name] = per.get(name, 0.0) + ms
+        else:
+            other += ms
+    return per, other, wall_ms
+
+
+def prove_bits(paths, cm, dev, n_public: int, seed: int = 7) -> dict:
+    """Proves with the bit-valued witness through the API: a first prove,
+    two timed ones (msm phase), and a profiled one (device ms of the MSM
+    kernels). Uses only entry points every slice of the port has had, so
+    it also measures an earlier tree."""
+    from icicle_snark_tpu_torch.prover import api, pipeline
+
+    bits = dict(paths, wtns=write_bits_witness(paths["wtns"], n_public, seed),
+                proof=paths["proof"] + ".bits", public=paths["public"] + ".bits")
+
+    def prove(timer=None):
+        return api.groth16_prove(bits["wtns"], bits["zkey"], bits["proof"], bits["public"], cm,
+                                 deterministic=True, timer=timer)
+
+    first = prove()
+    out = {"first_prove_s": first, "prove_s": [], "msm_s": []}
+    for _ in range(2):
+        timer = pipeline.PhaseTimer(dev)
+        out["prove_s"].append(prove(timer))
+        out["msm_s"].append(timer.phases["msm"])
+    out["msm_kernels_ms"] = kernel_device_ms(prove, lambda name: "msm_" in name)[0]
+    return out
+
+
+def check_msm_bits(rep, rng, cache, paths, dev, seed: int = 7) -> tuple:
+    """K4 on the prove's own MSM shapes with the bit-valued witness: A, B1,
+    C and B2 scalars in {0, 1} (the public head kept), beside the uniform h
+    they give. Kernels against plain versions at every lane, and K4 and the
+    window sums timed beside scalars uniform below r at the same shape.
+    Returns (equal to plain, timings)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    npub = cache.header.n_public
+    path = write_bits_witness(paths["wtns"], npub, seed)
+    witness = lb.words_to_limbs(WtnsFile(path).witness_limbs(), dev)
+    h = pipeline.construct_r1cs(witness, cache)
+    ok, timings = True, {}
+    for g2 in (False, True):
+        tag = "g2" if g2 else "g1"
+        ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
+        sizes, rec, c = _msm_shape(cache, g2)
+        bits_sc = witness if g2 else torch.cat([witness, witness, witness[:, npub + 1:], h], dim=-1)
+        uniform_sc = random_field(rng, lb.FR_SPEC.modulus, (sum(sizes),), dev)
+        half, groups = 1 << (c - 1), len(sizes)
+        for label, sc in (("bits", bits_sc), ("uniform", uniform_sc)):
+            order, negs, ends = msm.sort_windows(sc, sizes, c)
+            windows = order.shape[0]
+            if label == "bits":
+                acc_err, red_err, bp, acc_plain, red_plain = _msm_against_plain(
+                    ops, rec, order, negs, ends, windows, groups, half, "bits", tag, sc, c,
+                    time.perf_counter())
+                ok &= acc_err == 0 and red_err == 0
+                for k, err in ((kernels.MSM_ACCUMULATE, acc_err), (kernels.MSM_REDUCE, red_err)):
+                    row = rep.rows[k.name]
+                    row["equal_to_plain"] = row["equal_to_plain"] and err == 0
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+            else:
+                bp = msm.msm_accumulate(rec, order, negs, ends, groups, half)
+                acc_plain = red_plain = None
+            acc_ms, red_ms, _ab, _rb, what = _k4_times(rec, sc, order, negs, ends, groups, c, bp,
+                                                       tag)
+            del order, negs, ends, bp
+            ws_ms = cuda_time(lambda: msm.msm_window_sums(sc, sizes, rec, c), 3)
+            timings[f"{tag} {label}"] = {"accumulate_ms": acc_ms, "reduce_ms": red_ms,
+                                         "window_sums_ms": ws_ms, "plain_accumulate_ms": acc_plain,
+                                         "plain_reduce_ms": red_plain, "case": what}
+            log(f"  msm {tag} {label}: accumulate {acc_ms:.3f} ms, reduce {red_ms:.3f} ms, "
+                f"window sums {ws_ms:.3f} ms ({what})")
+            torch.cuda.empty_cache()
+    return ok, timings
+
+
+def k4_sweep(cache, dev, rng, pieces=(8, 16, 32, 64),
+             reduce_shapes=((4, 128), (8, 128), (8, 256), (16, 128), (16, 256), (32, 256))) -> dict:
+    """K4's constants timed at the prove's G1 and G2 shapes on uniform
+    scalars: accumulate by BUCKET_PIECE (L), reduce by (REDUCE_SEG,
+    REDUCE_BLOCK); each variant's output equals the default's as affine
+    points. The measurement the defaults are set from."""
+    import torch
+
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+
+    out = {}
+    for g2 in (False, True):
+        tag = "g2" if g2 else "g1"
+        ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
+        sizes, rec, c = _msm_shape(cache, g2)
+        half, groups = 1 << (c - 1), len(sizes)
+        sc = random_field(rng, lb.FR_SPEC.modulus, (sum(sizes),), dev)
+        order, negs, ends = msm.sort_windows(sc, sizes, c)
+        windows = order.shape[0]
+        ref_b = msm.msm_accumulate(rec, order, negs, ends, groups, half)
+        ref_w = msm.msm_reduce(ref_b, windows, groups, half)
+        for piece in pieces:
+            with patched((msm, "BUCKET_PIECE", piece)):
+                same = _points_err(ops, msm.msm_accumulate(rec, order, negs, ends, groups, half),
+                                   ref_b) == 0
+                ms = cuda_time(lambda: msm.msm_accumulate(rec, order, negs, ends, groups, half), 3)
+                levels = len(msm.bucket_fold_plan(ends, windows, groups, half, order.shape[1]))
+            out[f"{tag} accumulate L {piece}"] = {"ms": ms, "levels": levels, "same": same}
+            log(f"  sweep {tag} accumulate L {piece}: {ms:.3f} ms, {levels} levels, same {same}")
+        for seg, block in reduce_shapes:
+            with patched((msm, "REDUCE_SEG", seg), (msm, "REDUCE_BLOCK", block)):
+                same = _points_err(ops, msm.msm_reduce(ref_b, windows, groups, half), ref_w) == 0
+                ms = cuda_time(lambda: msm.msm_reduce(ref_b, windows, groups, half), 3)
+            out[f"{tag} reduce s {seg} nt {block}"] = {"ms": ms, "same": same}
+            log(f"  sweep {tag} reduce s {seg} nt {block}: {ms:.3f} ms, same {same}")
+        del order, negs, ends, ref_b
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- K5-K8
@@ -551,12 +744,10 @@ def check_acc_windows(rep, rng, cache, dev):
     ok, ms, plain_ms, bms, shapes, worst = True, 0.0, 0.0, 0.0, [], 0.0
     for g2 in (False, True):
         ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
-        if g2:
-            pts, groups, c = cache.points_b2, 1, cache.msm_c2
-        else:
-            pts, groups, c = cache.g1_points, len(cache.g1_sizes), cache.msm_c
-        lanes = min(4096, pts[0].shape[-1] // groups)
-        cut = tuple(p[..., :lanes * groups].contiguous() for p in pts)
+        sizes, rec, c = _msm_shape(cache, g2)
+        groups = len(sizes)
+        lanes = min(4096, rec.shape[0] // groups)
+        cut = rec[:lanes * groups]
         stacks = [msm.msm_window_sums(random_field(rng, lb.FR_SPEC.modulus, (lanes * groups,), dev),
                                       [lanes] * groups, cut, c) for _ in range(2)]
         acc, new = _stack_with_edges(ops, *stacks)
@@ -700,7 +891,7 @@ def check_probe(rep, rng, dev, depth: int = 4096):
 # ---------------------------------------------------------------- profile
 
 KERNEL_NAMES = ("field_vec_kernel", "r1cs_reduce_kernel", "ntt_stage_kernel",
-                "msm_accumulate_kernel", "msm_reduce_segments_kernel", "msm_reduce_final_kernel",
+                "msm_accumulate_kernel", "msm_reduce_segments_kernel", "msm_reduce_rows_kernel",
                 "ntt_block_kernel", "point_add_kernel", "point_dbl_k_kernel",
                 "point_to_affine_kernel", "probe_chain_kernel")
 
@@ -709,33 +900,12 @@ def profile_prove(paths, cm) -> dict:
     """One warm deterministic prove under torch.profiler: device time per
     kernel (ms, summed over launches), the other device work, the wall
     time and the device's idle share of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from icicle_snark_tpu_torch.prover import api
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"], cm,
-                          deterministic=True)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    per = {}
-    other = 0.0
-    # device-side events only (kernels, copies, fills): the host ops that
-    # launched them would count the same time again
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        ms = evt.time_range.elapsed_us() / 1e3
-        if any(k in evt.name for k in KERNEL_NAMES):
-            # "void msm_accumulate_kernel<E2>(...)" -> "msm_accumulate_kernel<E2>"
-            name = evt.name.split("(")[0].removeprefix("void ")
-            per[name] = per.get(name, 0.0) + ms
-        else:
-            other += ms
+    per, other, wall_ms = kernel_device_ms(
+        lambda: api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"],
+                                  cm, deterministic=True),
+        lambda name: any(k in name for k in KERNEL_NAMES))
     busy = sum(per.values()) + other
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels_ms": per,
             "other_device_ms": other,
@@ -829,15 +999,16 @@ def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict
     out = {}
     for c, f in g2_plans:
         c = c or msm.choose_c(n2, 1, f)
-        pre = msm.precompute_bases(cache.points_b2, jc.G2, c, f)
+        pre = msm.point_records(msm.precompute_bases(cache.points_b2, jc.G2, c, f))
         out[f"g2 c{c} f{f}"] = cuda_time(
             lambda: msm.msm_window_sums(witness, [n2], pre, c, f), reps)
         del pre
     groups = (cache.points_a, cache.points_b1, cache.points_c, cache.points_h)
     for c, f in g1_plans:
         c = c or msm.choose_c(sum(cache.g1_sizes), 4, f)
-        pre = tuple(torch.cat([msm.precompute_bases(g, jc.G1, c, f)[i] for g in groups], dim=-1)
-                    for i in range(2))
+        pre = msm.point_records(tuple(
+            torch.cat([msm.precompute_bases(g, jc.G1, c, f)[i] for g in groups], dim=-1)
+            for i in range(2)))
         out[f"g1 c{c} f{f}"] = cuda_time(
             lambda: msm.msm_window_sums(g1_scalars, cache.g1_sizes, pre, c, f), reps)
         del pre
@@ -852,6 +1023,9 @@ def main() -> int:
     ap.add_argument("--large-constraints", type=int, default=1600000,
                     help="size of the large circuit (complex-1600k by default)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bits-only", action="store_true",
+                    help="build, prove complex-N with a bit-valued witness, print the MSM times "
+                         "and stop (uses only entry points every slice of the port has had)")
     args = ap.parse_args()
 
     import torch
@@ -902,6 +1076,9 @@ def main() -> int:
         f"2^{cache.header.power}, G1 lanes {sum(cache.g1_sizes)} in {len(cache.g1_sizes)} groups, "
         f"G2 lanes {cache.points_b2[0].shape[-1]}, window size c = {cache.msm_c} (G1), "
         f"{cache.msm_c2} (G2)")
+    if args.bits_only:
+        log("[bits] " + json.dumps(prove_bits(paths, cm, dev, cache.header.n_public)))
+        return 0
 
     # ---- 3. kernels against their plain versions (K5 and K6 follow in
     # phase 6, at the large circuit's shapes, with K4 once more)
@@ -926,6 +1103,8 @@ def main() -> int:
     # ---- 4. proves through the API
     first_s, warm, launches, det_small = drive_proves(f"complex-{n}", paths, cm, dev, failures,
                                                       path_counts)
+    bits_small = prove_bits(paths, cm, dev, cache.header.n_public)
+    log(f"[bits] complex-{n}, bit-valued witness: " + json.dumps(bits_small))
     prof = profile_prove(paths, cm)
     if prof["device_busy_ms"] == 0:
         log("[profile] the profiler saw no device time")
@@ -951,10 +1130,9 @@ def main() -> int:
     if not same_plan:
         failures.append("precomputed-bases proof differs from the f = 1 proof")
     del cm_plan
-    plan_ms = time_msm_plans(
-        cache, paths, dev,
-        g2_plans=((None, 1), (None, 2), (13, 1), (13, 2), (13, 4), (16, 1), (16, 2)),
-        g1_plans=((None, 1), (None, 2), (13, 1), (16, 1), (16, 2)))
+    c_sweep = tuple((c, 1) for c in range(12, 17))
+    plan_ms = time_msm_plans(cache, paths, dev, g2_plans=c_sweep + ((None, 2), (13, 4)),
+                             g1_plans=c_sweep + ((None, 2),))
     sweep = ntt_threshold_sweep(dev)
 
     # ---- 6. the large circuit
@@ -988,6 +1166,16 @@ def main() -> int:
             failures.append(f"kernel {name} differs from its plain version at complex-{m}")
         torch.cuda.empty_cache()
         log(f"[kernels] {name} at complex-{m} checked in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    bits_ok, bits_timing = check_msm_bits(rep, rng, cache_big, big, dev)
+    if not bits_ok:
+        failures.append(f"K4 differs from its plain version on the bit-valued witness at "
+                        f"complex-{m}")
+    log(f"[kernels] msm on the bit-valued witness at complex-{m} checked in "
+        f"{time.perf_counter() - t1:.1f} s")
+    sweep_k4 = k4_sweep(cache_big, dev, rng)
+    if not all(v["same"] for v in sweep_k4.values()):
+        failures.append("a K4 sweep variant differs from the default as affine points")
     tag = f"complex-{m}"
     torch.cuda.reset_peak_memory_stats()
     big_first_s, big_warm, big_launches, det_big = drive_proves(tag, big, cm_big, dev, failures,
@@ -996,6 +1184,8 @@ def main() -> int:
     log(f"[large] peak device memory over the proves {peak_gb:.2f} GB")
     big_prof = profile_prove(big, cm_big)
     log("[large] profile of one warm prove: " + json.dumps(big_prof))
+    bits_big = prove_bits(big, cm_big, dev, cache_big.header.n_public)
+    log(f"[bits] complex-{m}, bit-valued witness: " + json.dumps(bits_big))
     variants = {}
 
     def forced(label, cmgr, patches=()):
@@ -1023,10 +1213,8 @@ def main() -> int:
     sliced_launches = variants["MSM sliced, max_lanes 2^21"]["launches"]
     if g1_lanes > (1 << 21) and sliced_launches["point_add"] == 0:
         failures.append(f"{tag}: the sliced route did not launch K6")
-    big_plan_ms = time_msm_plans(
-        cache_big, big, dev, reps=2,
-        g2_plans=((None, 1), (None, 2), (16, 1), (16, 2)),
-        g1_plans=((None, 1), (None, 2), (15, 1), (15, 2)))
+    big_plan_ms = time_msm_plans(cache_big, big, dev, reps=2, g2_plans=c_sweep + ((None, 2),),
+                                 g1_plans=c_sweep + ((None, 2),))
     cm_f2 = api.CacheManager("cuda", msm_plan=((cache_big.msm_c, 1), (cache_big.msm_c2, 2)))
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1099,13 +1287,14 @@ def main() -> int:
             failures.append(f"kernel {k.name} was not held against its plain version")
     summary = {
         "card": card, "constraints": n, "cold_cache_s": cold_cache_s, "first_prove_s": first_s,
-        "warm_prove_s": warm, "launches": launches, "profile": prof,
+        "warm_prove_s": warm, "launches": launches, "profile": prof, "bits_prove": bits_small,
         "plan_13_4": {"cold_cache_s": plan_cache_s, "prove_s": plan_s, "same_proof": same_plan},
         "msm_plan_ms": plan_ms, "ntt_threshold_sweep": sweep,
         "large": {"constraints": m, "setup_s": big_setup_s, "cold_cache_s": big_cold_s,
                   "first_prove_s": big_first_s, "warm_prove_s": big_warm,
                   "launches": big_launches, "profile": big_prof, "peak_memory_gb": peak_gb,
                   "deterministic_variants": variants, "msm_plan_ms": big_plan_ms,
+                  "bits_prove": bits_big, "msm_bits": bits_timing, "k4_sweep": sweep_k4,
                   "ntt_block": rep.rows.get(kernels.NTT_BLOCK.name)},
         "probe": probe_rows, "multiply_rate": mul_rate, "path_counts": path_counts,
         "failures": failures, "total_s": time.perf_counter() - t_all, "kernels": rows,

@@ -5,8 +5,11 @@
 // padd/pmadd/pdbl and as the port's plain torch version in
 // curve/jcurve.py, so every result equals the plain version's exactly.
 // Affine (0, 0) is the identity for the mixed add (zkeys hold such points).
-// The point operations are __noinline__: inlined, each kernel held several
-// copies of a ~12-product formula and nvcc took minutes on msm.cu.
+// p_add and p_dbl are __noinline__: inlined at every call site, a kernel
+// holds several copies of a ~12-product formula and nvcc takes minutes.
+// K4's hot loops, one addition each, use the force-inlined p_add_inl and
+// p_madd (K4 is p_madd's only caller), so the operands stay in registers
+// rather than passing through the call stack.
 #pragma once
 #include "field.cuh"
 
@@ -99,7 +102,7 @@ __device__ __forceinline__ Pt<E> p_identity() {
 
 // RCB15 alg 7 (jcurve.padd)
 template <class E>
-__device__ __noinline__ Pt<E> p_add(const Pt<E>& p, const Pt<E>& q) {
+__device__ __forceinline__ Pt<E> p_add_inl(const Pt<E>& p, const Pt<E>& q) {
   E t0 = e_mul(p.x, q.x);
   E t1 = e_mul(p.y, q.y);
   E t2 = e_mul(p.z, q.z);
@@ -121,9 +124,14 @@ __device__ __noinline__ Pt<E> p_add(const Pt<E>& p, const Pt<E>& q) {
   return r;
 }
 
+template <class E>
+__device__ __noinline__ Pt<E> p_add(const Pt<E>& p, const Pt<E>& q) {
+  return p_add_inl(p, q);
+}
+
 // RCB15 alg 8 (jcurve.pmadd): projective p + affine (qx, qy); (0,0) = identity
 template <class E>
-__device__ __noinline__ Pt<E> p_madd(const Pt<E>& p, const E& qx, const E& qy) {
+__device__ __forceinline__ Pt<E> p_madd(const Pt<E>& p, const E& qx, const E& qy) {
   if (e_is_zero(qx) && e_is_zero(qy)) return p;
   E t0 = e_mul(p.x, qx);
   E t1 = e_mul(p.y, qy);
@@ -183,4 +191,33 @@ __device__ __forceinline__ Pt<E> p_load(const u32* base, long long n, long long 
   e_load(p.y, base + (long long)W * n, n, i);
   e_load(p.z, base + 2LL * W * n, n, i);
   return p;
+}
+
+// One affine point of a lane-major record array (ops/msm.py point_records):
+// G1 records are 16 words (x | y), G2 records 32 (x.c0 | x.c1 | y.c0 | y.c1),
+// each read as 16-byte vectors (the array's base is 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void rec_words(u32 (&w)[N], const u32* __restrict__ rec, long long lane) {
+  const uint4* r = reinterpret_cast<const uint4*>(rec + lane * N);
+#pragma unroll
+  for (int k = 0; k < N / 4; k++) {
+    uint4 v = __ldg(r + k);
+    w[4 * k] = v.x; w[4 * k + 1] = v.y; w[4 * k + 2] = v.z; w[4 * k + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void rec_load(E1& x, E1& y, const u32* __restrict__ rec, long long lane) {
+  u32 w[16];
+  rec_words(w, rec, lane);
+#pragma unroll
+  for (int k = 0; k < 8; k++) { x.v[k] = w[k]; y.v[k] = w[8 + k]; }
+}
+
+__device__ __forceinline__ void rec_load(E2& x, E2& y, const u32* __restrict__ rec, long long lane) {
+  u32 w[32];
+  rec_words(w, rec, lane);
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    x.c0.v[k] = w[k]; x.c1.v[k] = w[8 + k]; y.c0.v[k] = w[16 + k]; y.c1.v[k] = w[24 + k];
+  }
 }

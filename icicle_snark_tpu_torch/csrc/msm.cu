@@ -1,144 +1,113 @@
-// K4: Pippenger bucket accumulation and window reduction for the grouped
-// G1 MSM (Fq coordinates) and the G2 MSM (Fq2 coordinates).
+// K4 accumulate: Pippenger bucket sums for the grouped G1 MSM (Fq
+// coordinates) and the G2 MSM (Fq2 coordinates). The window reduction, K4's
+// other half, is csrc/msm_reduce.cu.
 //
 // Replaces icicle_snark_tpu/ops/msm.py _window_bucket_prefixes (:609),
-// PrefixTree (:257), _chunked_inclusive_scan (:198), _telescope_batched
-// (:701), _chunked_reduce/_scalar_double_k (:368/:393) and the pipelines
-// around them (:727, :790, :935, :943). The TPU version had no scatter
-// atomics and no per-lane control flow, so it summed buckets as prefix-sum
-// differences of the sorted points. On Hopper a thread can walk its own run:
+// PrefixTree (:257), _chunked_inclusive_scan (:198) and the pipelines around
+// them (:727, :790, :935, :943). The TPU had no scatter atomics and no
+// per-lane control flow, so it summed buckets as prefix-sum differences of
+// the sorted points. On Hopper a thread walks a run of sorted lanes.
 //
-//   accumulate: one thread per (window, group, bucket b >= 1). The lanes of
-//     each window arrive sorted by key = group * (H + 1) + |digit| (torch.sort
-//     in the wrapper), ends[w][key] = lanes with key <= key. The thread mixed-
-//     adds the affine points of its run, y negated where the digit was
-//     negative. Bound: operations (one mixed add per lane per window).
-//   reduce: sum_b b * bucket_b per (window, group). The bucket range is cut
-//     into segments of `seg` buckets, one thread each: a running-sum triangle
-//     over the segment gives sum (b - lo + 1) * B_b, the segment's start is
-//     added back as (lo - 1) * sum B_b by double-and-add; a second kernel,
-//     one thread per (window, group), sums the segments in order.
-//     Bound: operations, 2(H - 1) general adds per (window, group) (the
-//     running-sum triangle over all H buckets); the segment scalings are
-//     the price of the parallel split, not part of the bound.
+// The lanes of each window arrive sorted by key = group * (H + 1) + |digit|
+// (torch.sort in ops/msm.py), so bucket (window, group, b) is a run of
+// consecutive sorted positions. ops/msm.py `bucket_fold_plan` cuts every run
+// into pieces of at most L = BUCKET_PIECE positions (torch cumsum and
+// repeat_interleave) and hands this kernel one table per level:
+//   level 0:  one thread per piece mixed-adds the piece's affine points (y
+//             negated for a negative digit), starting from the first point;
+//   level >0: one thread per piece of the previous level's partial sums adds
+//             them in order with complete projective adds,
+// until every bucket has at most L inputs; that last level has one item per
+// bucket (an empty bucket gives the identity) and writes the bucket sums,
+// (3, coords..., W*G*H), bucket b at b - 1, which msm_reduce.cu reads.
 //
-// Layouts: affine points (C, 8, total) per coordinate (C = 1 for G1, 2 for
-// G2); buckets (3, C, 8, W*G*H); output (3, C, 8, G, W) like JAX's stacked
-// window sums.
+// Longest serial chain per thread: L - 1 additions per level, over
+// ceil(log_L(R)) levels for the longest run R (1 level when R <= L), so at
+// most (L - 1) * ceil(log_L(R)) whatever the digits: a bit-valued witness,
+// which puts half of all lanes into bucket 1 of window 0, only adds levels.
+// The order of additions is fixed by the tables (no atomics on points), so
+// every run gives the same words and the plain version mirrors them.
+//
+// Bound: operations, one mixed add per lane with a nonzero digit (11 Fq
+// products for G1, 39 for G2; chip_smoke.py counts them from the digits).
+// What the design does about the old kernel's faults:
+//   * thread per bucket, time set by the longest run: pieces of at most L;
+//   * 16 or 32 scattered 32-byte sectors per limb-major point: points come
+//     as lane-major records (64 bytes G1, 128 G2), read as 16-byte vectors;
+//   * a __noinline__ mixed add whose 24/48-word operands went through the
+//     call stack: p_madd and p_add_inl are force-inlined into the loop.
 #include "curve.cuh"
 
-template <class E>
-__global__ void msm_accumulate_kernel(u32* __restrict__ buckets, const u32* __restrict__ px,
-                                      const u32* __restrict__ py, const int* __restrict__ order,
-                                      const unsigned char* __restrict__ negs,
-                                      const int* __restrict__ ends, long long total,
-                                      long long windows, long long groups, long long half) {
-  long long n_buckets = windows * groups * half;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_buckets) return;
-  long long w = t / (groups * half);
-  long long rem = t - w * groups * half;
-  long long g = rem / half;
-  long long b = rem - g * half + 1;
-  long long key = g * (half + 1) + b;
-  const int* ew = ends + w * groups * (half + 1);
-  int lo = ew[key - 1], hi = ew[key];
-  const int* ow = order + w * total;
-  const unsigned char* nw = negs + w * total;
-  Pt<E> acc = p_identity<E>();
-  for (int j = lo; j < hi; j++) {
-    long long lane = ow[j];
-    E x, y;
-    e_load(x, px, total, lane);
-    e_load(y, py, total, lane);
-    if (nw[j]) y = e_neg(y);
-    acc = p_madd(acc, x, y);
-  }
-  p_store(buckets, n_buckets, t, acc);
-}
+#define ACC_THREADS 128
 
 template <class E>
-__global__ void msm_reduce_segments_kernel(u32* __restrict__ partial,
-                                           const u32* __restrict__ buckets, long long wg,
-                                           long long half, long long seg, int nbits) {
-  long long n_seg = half / seg;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= wg * n_seg) return;
-  long long row = t / n_seg, s = t - row * n_seg;
-  long long n_buckets = wg * half;
-  long long lo = s * seg + 1;
-  Pt<E> run = p_identity<E>(), tri = p_identity<E>();
-  for (long long b = lo + seg - 1; b >= lo; b--) {
-    Pt<E> bk = p_load<E>(buckets, n_buckets, row * half + (b - 1));
-    run = p_add(run, bk);
-    tri = p_add(tri, run);
-  }
-  // + (lo - 1) * run, double-and-add over a fixed bit count
-  long long k = lo - 1;
-  Pt<E> acc = p_identity<E>();
-  for (int bit = nbits - 1; bit >= 0; bit--) {
-    acc = p_dbl(acc);
-    if ((k >> bit) & 1) acc = p_add(acc, run);
-  }
-  p_store(partial, wg * n_seg, t, p_add(tri, acc));
+__device__ __forceinline__ void load_signed(E& x, E& y, const u32* __restrict__ rec,
+                                            const int* __restrict__ order,
+                                            const unsigned char* __restrict__ negs,
+                                            long long pos) {
+  rec_load(x, y, rec, order[pos]);
+  if (negs[pos]) y = e_neg(y);
 }
 
-template <class E>
-__global__ void msm_reduce_final_kernel(u32* __restrict__ out, const u32* __restrict__ partial,
-                                        long long windows, long long groups, long long n_seg) {
-  long long wg = windows * groups;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= wg) return;
+// AFF: src is the (total, words) record array, start[i] a flattened
+// (window, sorted position) index into order/negs. Otherwise src is the
+// previous level's (3, coords..., n_src) partial sums, start[i] an index into
+// them. Item i adds len[i] inputs from start[i] on and writes out[i].
+template <class E, bool AFF>
+__global__ void __launch_bounds__(ACC_THREADS)
+    msm_accumulate_kernel(u32* __restrict__ out, const u32* __restrict__ src, long long n_src,
+                          const int* __restrict__ order, const unsigned char* __restrict__ negs,
+                          const long long* __restrict__ start, const int* __restrict__ len,
+                          long long n_items) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_items) return;
+  long long st = start[i];
+  int ln = len[i];
   Pt<E> acc = p_identity<E>();
-  for (long long s = 0; s < n_seg; s++) acc = p_add(acc, p_load<E>(partial, wg * n_seg, t * n_seg + s));
-  long long w = t / groups, g = t - w * groups;
-  p_store(out, wg, g * windows + w, acc);
+  if (ln > 0) {
+    if constexpr (AFF) {
+      E x, y;
+      load_signed(x, y, src, order, negs, st);
+      if (!(e_is_zero(x) && e_is_zero(y))) {
+        acc.x = x;
+        acc.y = y;
+        e_set_one(acc.z);
+      }
+      for (int r = 1; r < ln; r++) {
+        load_signed(x, y, src, order, negs, st + r);
+        acc = p_madd(acc, x, y);
+      }
+    } else {
+      acc = p_load<E>(src, n_src, st);
+      for (int r = 1; r < ln; r++) acc = p_add_inl(acc, p_load<E>(src, n_src, st + r));
+    }
+  }
+  p_store(out, n_items, i, acc);
 }
 
-extern "C" int snark_msm_accumulate(int g2, void* buckets, const void* px, const void* py,
-                                    const void* order, const void* negs, const void* ends,
-                                    long long total, long long windows, long long groups,
-                                    long long half, void* stream) {
-  long long n = windows * groups * half;
-  if (n == 0) return 0;
-  int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
+template <class E, bool AFF>
+static void launch_accumulate(void* out, const void* src, long long n_src, const void* order,
+                              const void* negs, const void* start, const void* len,
+                              long long n_items, cudaStream_t s) {
+  long long blocks = (n_items + ACC_THREADS - 1) / ACC_THREADS;
+  msm_accumulate_kernel<E, AFF><<<blocks, ACC_THREADS, 0, s>>>(
+      (u32*)out, (const u32*)src, n_src, (const int*)order, (const unsigned char*)negs,
+      (const long long*)start, (const int*)len, n_items);
+}
+
+extern "C" int snark_msm_accumulate(int g2, int affine, void* out, const void* src,
+                                    long long n_src, const void* order, const void* negs,
+                                    const void* start, const void* len, long long n_items,
+                                    void* stream) {
+  if (n_items == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (g2)
-    msm_accumulate_kernel<E2><<<blocks, threads, 0, s>>>(
-        (u32*)buckets, (const u32*)px, (const u32*)py, (const int*)order,
-        (const unsigned char*)negs, (const int*)ends, total, windows, groups, half);
+  if (g2 && affine)
+    launch_accumulate<E2, true>(out, src, n_src, order, negs, start, len, n_items, s);
+  else if (g2)
+    launch_accumulate<E2, false>(out, src, n_src, order, negs, start, len, n_items, s);
+  else if (affine)
+    launch_accumulate<E1, true>(out, src, n_src, order, negs, start, len, n_items, s);
   else
-    msm_accumulate_kernel<E1><<<blocks, threads, 0, s>>>(
-        (u32*)buckets, (const u32*)px, (const u32*)py, (const int*)order,
-        (const unsigned char*)negs, (const int*)ends, total, windows, groups, half);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int snark_msm_reduce(int g2, void* out, void* partial, const void* buckets,
-                                long long windows, long long groups, long long half,
-                                long long seg, int nbits, void* stream) {
-  long long wg = windows * groups;
-  if (wg == 0) return 0;
-  long long n_seg = half / seg;
-  int threads = 64;
-  cudaStream_t s = (cudaStream_t)stream;
-  long long blocks1 = (wg * n_seg + threads - 1) / threads;
-  long long blocks2 = (wg + threads - 1) / threads;
-  if (g2) {
-    msm_reduce_segments_kernel<E2><<<blocks1, threads, 0, s>>>((u32*)partial, (const u32*)buckets,
-                                                              wg, half, seg, nbits);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    msm_reduce_final_kernel<E2><<<blocks2, threads, 0, s>>>((u32*)out, (const u32*)partial,
-                                                           windows, groups, n_seg);
-  } else {
-    msm_reduce_segments_kernel<E1><<<blocks1, threads, 0, s>>>((u32*)partial, (const u32*)buckets,
-                                                              wg, half, seg, nbits);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    msm_reduce_final_kernel<E1><<<blocks2, threads, 0, s>>>((u32*)out, (const u32*)partial,
-                                                           windows, groups, n_seg);
-  }
+    launch_accumulate<E1, false>(out, src, n_src, order, negs, start, len, n_items, s);
   return (int)cudaGetLastError();
 }

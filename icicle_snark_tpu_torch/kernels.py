@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -63,17 +64,27 @@ def build(verbose: bool = False) -> str:
     nvcc = _nvcc()
     units = [p for p in _sources() if p.endswith(".cu")]
     objs, procs = [], []
+    t0 = time.perf_counter()
     for src in units:
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
         objs.append(obj)
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj]
-        procs.append((src, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for src, proc in procs:
-        out, _ = proc.communicate()
+        # output to a file: a full pipe would stall nvcc while another is waited on
+        log = open(obj + ".log", "w+")
+        procs.append((src, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                                 text=True)))
+    failed, secs = [], {}
+    while len(secs) < len(procs):
+        for src, _log, proc in procs:
+            if src not in secs and proc.poll() is not None:
+                secs[src] = time.perf_counter() - t0
+        time.sleep(0.05)
+    for src, log, proc in procs:
+        log.seek(0)
+        out = log.read()
+        log.close()
         if verbose or proc.returncode:
-            print(f"[nvcc {os.path.basename(src)}]\n{out}", flush=True)
+            print(f"[nvcc {os.path.basename(src)}] {secs[src]:.1f} s\n{out}", flush=True)
         if proc.returncode:
             failed.append(os.path.basename(src))
     if failed:
@@ -109,10 +120,10 @@ _SIGNATURES = {
     "snark_r1cs_reduce": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP],
     # x, tw, scale, batch, n, m, inverse, stream
     "snark_ntt_stage": [_VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
-    # g2, buckets, px, py, order, negs, ends, total, windows, groups, half, stream
-    "snark_msm_accumulate": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
-    # g2, out, partial, buckets, windows, groups, half, seg, nbits, stream
-    "snark_msm_reduce": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
+    # g2, affine, out, src, n_src, order, negs, start, len, n_items, stream
+    "snark_msm_accumulate": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP],
+    # g2, stage, out, seg_s, seg_t, buckets, windows, groups, half, seg, nt, stream
+    "snark_msm_reduce": [_I, _I, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
     # x, tw, scale, batch, n, log_n, low, k, tcols_log, inverse, stream
     "snark_ntt_block": [_VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP],
     # g2, out, a, b, n, stream
@@ -163,7 +174,7 @@ MSM_ACCUMULATE = Kernel(
     "icicle_snark_tpu/ops/msm.py:609",
 )
 MSM_REDUCE = Kernel(
-    "msm_reduce", "snark_msm_reduce", "icicle_snark_tpu_torch/csrc/msm.cu",
+    "msm_reduce", "snark_msm_reduce", "icicle_snark_tpu_torch/csrc/msm_reduce.cu",
     "icicle_snark_tpu/ops/msm.py:701",
 )
 NTT_BLOCK = Kernel(

@@ -6,15 +6,19 @@ of icicle_snark_tpu/ops/msm.py:
   1. signed c-bit window digits of the scalars (plain torch, msm.py:167);
   2. per window, lanes sorted by key = group * (H + 1) + |digit| with
      torch.sort, H = 2^(c-1), and bucket ends by searchsorted;
-  3. `msm_accumulate` (K4): one thread per (window, group, bucket) adds the
-     affine points of its run, y negated for negative digits;
-  4. `msm_reduce` (K4): sum_b b * bucket_b per (window, group);
+  3. `msm_accumulate` (K4, csrc/msm.cu): every bucket's run of sorted lanes
+     cut into pieces of at most BUCKET_PIECE points, one thread per piece,
+     the pieces' sums folded the same way until one sum per bucket is left
+     (`bucket_fold_plan`); y negated for negative digits;
+  4. `msm_reduce` (K4, csrc/msm_reduce.cu): sum_b b * bucket_b per (window,
+     group), by segments of REDUCE_SEG buckets and one block per row;
   5. Horner over the windows on the host (Python ints).
 
 All G1 MSMs of a prove run as ONE pipeline over group-concatenated lanes
 (the batched mode of the JAX package); the window sums come back stacked
 (3, coords..., G, W) in Montgomery form, G1 coords (8,), G2 (2, 8).
-Scalars are raw integers (8, n) int32 (the witness and h values).
+Scalars are raw integers (8, n) int32 (the witness and h values); points
+are the lane-major records of `point_records`.
 
 Two variants of the JAX package's large-circuit path ride on the same
 kernels:
@@ -40,18 +44,31 @@ from ..refmath import curve as rcv
 from ..refmath.field import fq_from_mont
 
 SCALAR_BITS = 256
-# buckets per thread in the first reduce pass (K4 reduce)
-REDUCE_SEG = 32
+# K4 accumulate: the most points (level 0) or partial sums (later levels)
+# one thread adds in one level.
+BUCKET_PIECE = 16
+# K4 reduce: buckets per thread of the segments stage, and threads of the
+# block that finishes one (window, group) row (at most 256: the G2 rows
+# kernel takes 255 registers a thread). Set by measurement on an H100
+# (PERF.md, the K4 sweep of chip_smoke.py).
+REDUCE_SEG = 16
+REDUCE_BLOCK = 256
+# Items one plain-torch accumulate step takes at a time (bounds the plain
+# version's temporaries at the full-size MSMs).
+PLAIN_CHUNK = 1 << 21
 
 
 # Point lanes one in-core MSM pipeline may hold. Per point lane the
 # pipeline keeps, for each of W windows: the digit and its key (2 x int64),
 # torch.sort's sorted keys and order (2 x int64), the int32 order K4 reads,
 # and three sign bytes: 39 bytes, 624 per lane at W = 16 (c = 16) and 780
-# at W = 20 (c = 13), plus the affine point (64 bytes G1, 128 G2): 1 KiB
-# per lane covers both. 2^25 lanes are then 32 GiB of an 80 GB card, which
-# leaves room for the proving key, the NTT batch and the allocator's slack.
-# The G2 MSM takes half the lanes, as in the JAX package.
+# at W = 20 (c = 13); K4's first level adds, per BUCKET_PIECE lane-windows,
+# a table entry (12 bytes, about 40 while it is built) and a partial sum
+# (96 bytes G1, 192 G2), under 16 bytes per lane-window; plus the affine
+# record (64 bytes G1, 128 G2): 1 KiB per lane covers both. 2^25 lanes are
+# then 32 GiB of an 80 GB card, which leaves room for the proving key, the
+# NTT batch and the allocator's slack. The G2 MSM takes half the lanes, as
+# in the JAX package.
 MSM_MAX_LANES = 1 << 25
 # Precompute factor of the default plan (G1, G2). Measured on an H100
 # (PERF.md), factor 2 took 3 to 7 % off the window sums at the same
@@ -65,34 +82,24 @@ def merged_windows(c: int, factor: int = 1) -> int:
     return -(-(-(-SCALAR_BITS // c)) // factor)
 
 
-# BN254 scalars are below the 254-bit group order r.
-SCALAR_DATA_BITS = 254
-# What one serial point addition costs in units of the card's aggregate time
-# per addition: K4 walks a bucket's run, and sums the reduce's segments, in
-# ONE thread. Measured on an H100 (PERF.md): a lone thread's G1 add
-# takes about 12 us against 0.8 ns per add with the card full, G2 82 us
-# against 8.5 ns: 2^13 to 2^14.
-SERIAL_WEIGHT = 1 << 13
+# What one bucket costs K4 reduce, in units of one mixed add of K4
+# accumulate: two complete adds per bucket in the segments stage.
+REDUCE_WEIGHT = 2
 
 
 def choose_c(n: int, groups: int = 1, factor: int = 1) -> int:
-    """Window size that minimises K4's modelled time, in point additions
-    (c in 8..16; signed digits need c >= 8): wp merged windows, each with
-    one mixed add per point lane (n * factor, dead slots included) and two
-    adds per bucket in the reduce, all spread over the card; plus the two
-    chains that run in a single thread, weighted by SERIAL_WEIGHT: the
-    longest bucket run and the reduce's final pass over H / REDUCE_SEG
-    segment sums. The longest run is the top window's: the window that
-    holds bit 253 has only 254 - c * floor(253 / c) data bits, so its
-    lanes crowd into 2^bits buckets (c = 13: 128 buckets, c = 14: 4,
-    c = 15 and 16: 2^14)."""
+    """Window size that minimises K4's modelled time (c in 8..16; signed
+    digits need c >= 8): wp merged windows, each with one mixed add per
+    point lane (n * factor, dead slots included) in the accumulate and
+    REDUCE_WEIGHT per bucket (groups * H) in the reduce. No thread of
+    either kernel walks a bucket's run or a row's segments in order, so
+    the longest run does not enter the model. On an H100 it picks the
+    fastest c of 12..16 at both circuits of PERF.md (chip_smoke.py
+    time_msm_plans)."""
     best_c, best_cost = 8, None
     for c in range(8, 17):
         half = 1 << (c - 1)
-        top_bits = SCALAR_DATA_BITS - ((SCALAR_DATA_BITS - 1) // c) * c
-        longest_run = n / groups / min(half, 1 << top_bits)
-        cost = (merged_windows(c, factor) * (n * factor + 2 * groups * half)
-                + SERIAL_WEIGHT * (longest_run + half / REDUCE_SEG))
+        cost = merged_windows(c, factor) * (n * factor + REDUCE_WEIGHT * groups * half)
         if best_cost is None or cost < best_cost:
             best_c, best_cost = c, cost
     return best_c
@@ -136,125 +143,289 @@ def _ops(g2: bool, plain: bool):
 
 # ---------------------------------------------------------------- K4: accumulate
 
-def msm_accumulate_plain(px, py, order, negs, ends, groups: int, half: int):
-    """Plain version of K4 accumulate: bucket sums, (3, coords..., W*G*H)."""
-    g2 = px.dim() == 3
-    ops = _ops(g2, True)
-    windows = order.shape[0]
+def point_records(points) -> torch.Tensor:
+    """Affine (x, y), each (8, n) (G1) or (2, 8, n) (G2) limb-major, -> the
+    lane-major records K4 reads: (n, 16) int32, x then y, for G1; (n, 32),
+    x.c0, x.c1, y.c0, y.c1, for G2. One point is one 64- or 128-byte row."""
+    x, y = points
+    return torch.cat([x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])]).T.contiguous()
+
+
+def _record_coords(rec: torch.Tensor, g2: bool):
+    """(k, 16 | 32) records -> affine (x, y) limb-major, as point_records' input."""
+    t = rec.T
+    if g2:
+        return t[:16].reshape(2, NLIMB, -1), t[16:].reshape(2, NLIMB, -1)
+    return t[:NLIMB], t[NLIMB:]
+
+
+def bucket_fold_plan(ends, windows: int, groups: int, half: int, total: int) -> list:
+    """The addition tables of K4 accumulate, one (start, len) pair of
+    tensors per level. Bucket t = (w * G + g) * H + b - 1 is the run of
+    sorted positions [ends[w, key - 1], ends[w, key]), key = g * (H + 1) + b.
+    While some bucket has more than L = BUCKET_PIECE inputs, each bucket's
+    inputs are cut into pieces of at most L (item k of a bucket starts at
+    k * L), one item per piece, and the next level's inputs are those
+    pieces' sums; the last level has one item per bucket, an empty one of
+    length 0. Level 0 starts index the flattened (W * total) sorted
+    positions, later levels the previous level's items."""
+    piece = BUCKET_PIECE
+    dev = ends.device
     nbk = windows * groups * half
-    dev = px.device
     t = torch.arange(nbk, device=dev)
     w = t // (groups * half)
     rem = t % (groups * half)
     key = (rem // half) * (half + 1) + rem % half + 1
-    ends64 = ends.to(torch.int64)
-    lo = ends64[w, key - 1]
-    cnt = ends64[w, key] - lo
-    acc = list(jc.identity(ops, nbk, dev))
-    for r in range(int(cnt.max()) if nbk else 0):
-        act = torch.nonzero(cnt > r).squeeze(1)
-        pos = lo[act] + r
-        wa = w[act]
-        lane = order[wa, pos].to(torch.int64)
-        x, y = px[..., lane], py[..., lane]
-        y = torch.where(negs[wa, pos], ops.neg(y), y)
-        new = jc.pmadd(ops, tuple(a[..., act] for a in acc), (x, y))
-        for i in range(3):
-            acc[i][..., act] = new[i]
-    return jc.point_stack(tuple(acc))
+    e = ends.to(torch.int64)
+    start = w * total + e[w, key - 1]
+    cnt = e[w, key] - e[w, key - 1]
+    levels = []
+    while True:
+        pieces = (cnt + piece - 1) // piece
+        longest, n_items = torch.stack([cnt.max(), pieces.sum()]).tolist()
+        if longest <= piece:
+            levels.append((start, cnt.to(torch.int32)))
+            return levels
+        bucket = torch.repeat_interleave(torch.arange(nbk, device=dev), pieces,
+                                         output_size=n_items)
+        first = torch.cumsum(pieces, 0) - pieces
+        k = torch.arange(n_items, device=dev) - first[bucket]
+        levels.append((start[bucket] + k * piece,
+                       torch.clamp(cnt[bucket] - k * piece, max=piece).to(torch.int32)))
+        start, cnt = first, pieces
 
 
-def msm_accumulate(px, py, order, negs, ends, groups: int, half: int):
-    """Bucket sums of one MSM pipeline (all windows and groups).
+def msm_bucket_sums_plain(g2: bool, affine: bool, src, order, negs, start, length):
+    """Plain version of one K4 accumulate level (csrc/msm.cu), in the
+    kernel's order of additions: item i adds length[i] inputs from start[i]
+    on. affine: src the (total, words) records, order/negs the flattened
+    (W * total) sorted lanes and signs; the first point (y negated for a
+    negative digit; (0, 0) is the identity) starts the sum, the others are
+    mixed-added. Otherwise src is the previous level's (3, coords..., m)
+    partial sums, the first starts the sum and the others are added.
+    Returns (3, coords..., n_items). Items are taken PLAIN_CHUNK at a time."""
+    ops = _ops(g2, True)
+    n = start.shape[0]
+    dev = start.device
+    out = []
+    for lo in range(0, n, PLAIN_CHUNK):
+        st = start[lo:lo + PLAIN_CHUNK]
+        ln = length[lo:lo + PLAIN_CHUNK].to(torch.int64)
+        m = st.shape[0]
 
-    px, py: affine coordinates (8, total) for G1 or (2, 8, total) for G2;
-    order: (W, total) int32 lane order of each window sorted by key;
-    negs: (W, total) bool digit signs in that order;
-    ends: (W, G*(H+1)) int32, lanes with key <= k.
-    Returns (3, coords..., W*G*H) projective bucket sums (bucket b at b-1)."""
-    g2 = px.dim() == 3
-    windows, total = order.shape
-    if (px.shape != py.shape or px.shape[-1] != total or px.shape[-2] != NLIMB
-            or ends.shape != (windows, groups * (half + 1)) or negs.shape != order.shape):
-        raise ValueError("msm_accumulate: inconsistent shapes")
-    if px.device.type == "cpu":
-        return msm_accumulate_plain(px, py, order, negs, ends, groups, half)
-    if px.device.type != "cuda":
-        raise RuntimeError(f"msm_accumulate: unsupported device {px.device}")
-    px, py = px.contiguous(), py.contiguous()
+        def load(pos):
+            if affine:
+                x, y = _record_coords(src[order[pos].to(torch.int64)], g2)
+                return x, torch.where(negs[pos], ops.neg(y), y)
+            return tuple(a[..., pos] for a in jc.point_unstack(src))
+
+        acc = jc.identity(ops, m, dev)
+        some = torch.nonzero(ln > 0).squeeze(1)
+        if some.numel():
+            first = load(st[some])
+            if affine:
+                x, y = first
+                ident = jc.identity(ops, some.numel(), dev)
+                inf = ops.is_zero_lanes(x) & ops.is_zero_lanes(y)
+                first = jc.pselect(inf, ident, (x, y, ident[1]))
+            for a, v in zip(acc, first):
+                a[..., some] = v
+        for r in range(1, int(ln.max())):
+            act = torch.nonzero(ln > r).squeeze(1)
+            cur = tuple(a[..., act] for a in acc)
+            nxt = load(st[act] + r)
+            new = jc.pmadd(ops, cur, nxt) if affine else jc.padd(ops, cur, nxt)
+            for a, v in zip(acc, new):
+                a[..., act] = v
+        out.append(jc.point_stack(acc))
+    return torch.cat(out, dim=-1)
+
+
+def msm_bucket_sums(g2: bool, affine: bool, src, order, negs, start, length):
+    """One K4 accumulate level (see msm_bucket_sums_plain) on the card."""
+    n = start.shape[0]
+    words = 32 if g2 else 16
+    if affine:
+        if src.dim() != 2 or src.shape[1] != words or order.shape != negs.shape:
+            raise ValueError("msm_bucket_sums: want (total, words) records and matching order/negs")
+    elif src.dim() != (4 if g2 else 3) or src.shape[0] != 3:
+        raise ValueError("msm_bucket_sums: want (3, coords..., m) partial sums")
+    if start.shape != (n,) or length.shape != (n,) or start.dtype != torch.int64 \
+            or length.dtype != torch.int32 or src.dtype != torch.int32:
+        raise ValueError("msm_bucket_sums: inconsistent tables")
+    if src.device.type == "cpu":
+        return msm_bucket_sums_plain(g2, affine, src, order, negs, start, length)
+    if src.device.type != "cuda":
+        raise RuntimeError(f"msm_bucket_sums: unsupported device {src.device}")
+    src, start, length = src.contiguous(), start.contiguous(), length.contiguous()
     order = order.to(torch.int32).contiguous()
     negs = negs.to(torch.bool).contiguous()
-    ends = ends.to(torch.int32).contiguous()
-    nbk = windows * groups * half
-    out = torch.empty((3,) + tuple(px.shape[:-1]) + (nbk,), dtype=torch.int32, device=px.device)
+    coords = (2, NLIMB) if g2 else (NLIMB,)
+    out = torch.empty((3,) + coords + (n,), dtype=torch.int32, device=src.device)
+    n_src = src.shape[0] if affine else src.shape[-1]
     kernels.MSM_ACCUMULATE.launch(
-        int(g2), out.data_ptr(), px.data_ptr(), py.data_ptr(), order.data_ptr(),
-        negs.data_ptr(), ends.data_ptr(), total, windows, groups, half,
+        int(g2), int(affine), out.data_ptr(), src.data_ptr(), n_src, order.data_ptr(),
+        negs.data_ptr(), start.data_ptr(), length.data_ptr(), n,
     )
     return out
 
 
+def _accumulate(records, order, negs, ends, groups: int, half: int, level_fn):
+    g2 = records.shape[1] == 32
+    windows, total = order.shape
+    order, negs = order.reshape(-1), negs.reshape(-1)
+    src, affine = records, True
+    for start, length in bucket_fold_plan(ends, windows, groups, half, total):
+        src = level_fn(g2, affine, src, order, negs, start, length)
+        affine = False
+    return src
+
+
+def _check_accumulate(records, order, negs, ends, groups, half):
+    windows, total = order.shape
+    if (records.dim() != 2 or records.shape[1] not in (16, 32) or records.shape[0] != total
+            or records.dtype != torch.int32 or negs.shape != order.shape
+            or ends.shape != (windows, groups * (half + 1))):
+        raise ValueError("msm_accumulate: inconsistent shapes")
+
+
+def msm_accumulate_plain(records, order, negs, ends, groups: int, half: int):
+    """Plain version of K4 accumulate: every level in plain torch."""
+    _check_accumulate(records, order, negs, ends, groups, half)
+    return _accumulate(records, order, negs, ends, groups, half, msm_bucket_sums_plain)
+
+
+def msm_accumulate(records, order, negs, ends, groups: int, half: int):
+    """Bucket sums of one MSM pipeline (all windows and groups).
+
+    records: (total, 16) G1 or (total, 32) G2 affine points (point_records);
+    order: (W, total) int32 lane order of each window sorted by key;
+    negs: (W, total) bool digit signs in that order;
+    ends: (W, G*(H+1)) int32, lanes with key <= k.
+    Returns (3, coords..., W*G*H) projective bucket sums (bucket b at b-1).
+    One launch per level of bucket_fold_plan."""
+    _check_accumulate(records, order, negs, ends, groups, half)
+    if records.device.type == "cpu":
+        return msm_accumulate_plain(records, order, negs, ends, groups, half)
+    if records.device.type != "cuda":
+        raise RuntimeError(f"msm_accumulate: unsupported device {records.device}")
+    return _accumulate(records, order, negs, ends, groups, half, msm_bucket_sums)
+
+
 # ---------------------------------------------------------------- K4: reduce
 
-def _reduce_seg(half: int) -> int:
-    return min(REDUCE_SEG, half)
+def reduce_shape(half: int) -> tuple:
+    """(s, n_seg, nt, q) of K4 reduce for H = half buckets: segments of
+    s = min(REDUCE_SEG, H) buckets, n_seg = H / s of them per row, blocks of
+    nt = min(REDUCE_BLOCK, n_seg) threads owning q = n_seg / nt each."""
+    seg = min(REDUCE_SEG, half)
+    n_seg = half // seg
+    nt = min(REDUCE_BLOCK, n_seg)
+    return seg, n_seg, nt, n_seg // nt
+
+
+def _lanes(p, idx):
+    return tuple(a[..., idx] for a in p)
+
+
+def msm_reduce_segments_plain(ops, buckets, rows: int, half: int, seg: int):
+    """Plain version of K4 reduce stage 0: (S, T) per (row, segment)."""
+    n_seg = half // seg
+    t = torch.arange(rows * n_seg, device=buckets.device)
+    base = (t // n_seg) * half + (t % n_seg) * seg
+    b = jc.point_unstack(buckets)
+    run = _lanes(b, base + seg - 1)
+    tri = run
+    for i in range(seg - 2, -1, -1):
+        run = jc.padd(ops, run, _lanes(b, base + i))
+        tri = jc.padd(ops, tri, run)
+    return run, tri
+
+
+def msm_reduce_rows_plain(ops, seg_s, seg_t, windows: int, groups: int, n_seg: int, nt: int,
+                          seg: int):
+    """Plain version of K4 reduce stage 1, lane (row, u) for thread u of a
+    row's block, in the kernel's order of additions."""
+    rows = windows * groups
+    q = n_seg // nt
+    dev = seg_s[0].device
+    lane = torch.arange(rows * nt, device=dev)
+    u = lane % nt
+    first = (lane // nt) * n_seg + u * q
+    sig, tau = _lanes(seg_s, first), _lanes(seg_t, first)
+    for r in range(1, q):
+        sig = jc.padd(ops, sig, _lanes(seg_s, first + r))
+        tau = jc.padd(ops, tau, _lanes(seg_t, first + r))
+    # inclusive suffix scan of sig within each row (Hillis-Steele)
+    d = 1
+    while d < nt:
+        act = torch.nonzero(u + d < nt).squeeze(1)
+        new = jc.padd(ops, _lanes(sig, act), _lanes(sig, act + d))
+        for a, v in zip(sig, new):
+            a[..., act] = v
+        d *= 2
+    has_carry = u + 1 < nt
+    run = jc.pselect(has_carry, _lanes(sig, torch.where(has_carry, lane + 1, lane)),
+                     jc.identity(ops, rows * nt, dev))
+    tri = jc.identity(ops, rows * nt, dev)
+    for r in range(q - 1, -1, -1):
+        run = jc.padd(ops, run, _lanes(seg_s, first + r))
+        tri = jc.pselect(u * q + r >= 1, jc.padd(ops, tri, run), tri)
+
+    def block_sum(v):
+        d = nt // 2
+        while d >= 1:
+            act = torch.nonzero(u < d).squeeze(1)
+            new = jc.padd(ops, _lanes(v, act), _lanes(v, act + d))
+            for a, x in zip(v, new):
+                a[..., act] = x
+            d //= 2
+        return _lanes(v, torch.arange(rows, device=dev) * nt)
+
+    a = block_sum(tau)
+    v = block_sum(tri)
+    for _ in range(seg.bit_length() - 1):
+        v = jc.pdbl(ops, v)
+    out = jc.point_stack(jc.padd(ops, a, v))
+    # row w*G + g -> (G, W)
+    shp = out.shape[:-1]
+    return out.reshape(shp + (windows, groups)).transpose(-1, -2).contiguous()
 
 
 def msm_reduce_plain(buckets, windows: int, groups: int, half: int):
     """Plain version of K4 reduce: (3, coords..., W*G*H) -> (3, coords..., G, W)."""
-    g2 = buckets.dim() == 4
-    ops = _ops(g2, True)
-    dev = buckets.device
-    wg = windows * groups
-    seg = _reduce_seg(half)
-    n_seg = half // seg
-    nbits = half.bit_length() - 1
-    lanes = torch.arange(wg * n_seg, device=dev)
-    row, s = lanes // n_seg, lanes % n_seg
-    lo = s * seg + 1
-    run = jc.identity(ops, wg * n_seg, dev)
-    tri = run
-    for i in range(seg):
-        idx = row * half + (lo + seg - 1 - i) - 1
-        bk = tuple(a[..., idx] for a in jc.point_unstack(buckets))
-        run = jc.padd(ops, run, bk)
-        tri = jc.padd(ops, tri, run)
-    k = lo - 1
-    acc = jc.identity(ops, wg * n_seg, dev)
-    for bit in range(nbits - 1, -1, -1):
-        acc = jc.pdbl(ops, acc)
-        acc = jc.pselect(((k >> bit) & 1) == 1, jc.padd(ops, acc, run), acc)
-    part = jc.padd(ops, tri, acc)
-    rows = torch.arange(wg, device=dev)
-    out = jc.identity(ops, wg, dev)
-    for si in range(n_seg):
-        out = jc.padd(ops, out, tuple(a[..., rows * n_seg + si] for a in part))
-    # lane w*G + g -> (G, W)
-    stacked = jc.point_stack(out)
-    shp = stacked.shape[:-1]
-    return stacked.reshape(shp + (windows, groups)).transpose(-1, -2).contiguous()
+    ops = _ops(buckets.dim() == 4, True)
+    seg, n_seg, nt, _q = reduce_shape(half)
+    seg_s, seg_t = msm_reduce_segments_plain(ops, buckets, windows * groups, half, seg)
+    return msm_reduce_rows_plain(ops, seg_s, seg_t, windows, groups, n_seg, nt, seg)
 
 
 def msm_reduce(buckets, windows: int, groups: int, half: int):
-    """Window sums sum_b b * bucket_b: (3, coords..., W*G*H) -> (3, coords..., G, W)."""
+    """Window sums sum_b b * bucket_b: (3, coords..., W*G*H) -> (3, coords..., G, W).
+    Two launches (segments, rows)."""
     g2 = buckets.dim() == 4
-    if buckets.shape[-1] != windows * groups * half or half & (half - 1):
+    if (buckets.shape[-1] != windows * groups * half or half & (half - 1)
+            or buckets.dtype != torch.int32 or buckets.shape[0] != 3):
         raise ValueError("msm_reduce: inconsistent shapes")
+    if REDUCE_SEG & (REDUCE_SEG - 1) or REDUCE_BLOCK & (REDUCE_BLOCK - 1) or REDUCE_BLOCK > 256:
+        raise ValueError("msm_reduce: REDUCE_SEG and REDUCE_BLOCK must be powers of two, "
+                         "REDUCE_BLOCK at most 256")
     if buckets.device.type == "cpu":
         return msm_reduce_plain(buckets, windows, groups, half)
     if buckets.device.type != "cuda":
         raise RuntimeError(f"msm_reduce: unsupported device {buckets.device}")
     buckets = buckets.contiguous()
-    seg = _reduce_seg(half)
+    seg, n_seg, nt, _q = reduce_shape(half)
     coords = tuple(buckets.shape[1:-1])
-    partial = torch.empty((3,) + coords + (windows * groups * (half // seg),),
-                          dtype=torch.int32, device=buckets.device)
-    out = torch.empty((3,) + coords + (groups, windows), dtype=torch.int32,
-                      device=buckets.device)
-    kernels.MSM_REDUCE.launch(
-        int(g2), out.data_ptr(), partial.data_ptr(), buckets.data_ptr(),
-        windows, groups, half, seg, half.bit_length() - 1,
-    )
+    rows = windows * groups
+    seg_s, seg_t = (torch.empty((3,) + coords + (rows * n_seg,), dtype=torch.int32,
+                                device=buckets.device) for _ in range(2))
+    out = torch.empty((3,) + coords + (groups, windows), dtype=torch.int32, device=buckets.device)
+    for stage in (0, 1):
+        kernels.MSM_REDUCE.launch(
+            int(g2), stage, out.data_ptr(), seg_s.data_ptr(), seg_t.data_ptr(),
+            buckets.data_ptr(), windows, groups, half, seg, nt,
+        )
     return out
 
 
@@ -356,26 +527,26 @@ def sort_windows(scalars: torch.Tensor, groups_of, c: int, precompute: int = 1):
     return order.to(torch.int32), negs, ends.to(torch.int32)
 
 
-def _window_sums(scalars, groups_of, points, c: int, precompute: int):
+def _window_sums(scalars, groups_of, records, c: int, precompute: int):
     groups = groups_of[1] if isinstance(groups_of, tuple) else len(groups_of)
     order, negs, ends = sort_windows(scalars, groups_of, c, precompute)
     half = 1 << (c - 1)
-    buckets = msm_accumulate(points[0], points[1], order, negs, ends, groups, half)
+    buckets = msm_accumulate(records, order, negs, ends, groups, half)
     return msm_reduce(buckets, order.shape[0], groups, half)
 
 
-def msm_window_sums(scalars: torch.Tensor, group_sizes, points, c: int, precompute: int = 1):
-    """Window sums of group-concatenated MSMs: scalars (8, total), points
-    affine (x, y) concatenated in the same lane order (total * precompute
-    lanes in the `precompute_bases` layout). Returns stacked
-    (3, coords..., G, wp) projective Montgomery window sums."""
+def msm_window_sums(scalars: torch.Tensor, group_sizes, records, c: int, precompute: int = 1):
+    """Window sums of group-concatenated MSMs: scalars (8, total), records
+    the `point_records` of the affine points concatenated in the same lane
+    order (total * precompute rows in the `precompute_bases` layout).
+    Returns stacked (3, coords..., G, wp) projective Montgomery window sums."""
     if (scalars.shape[-1] != sum(group_sizes)
-            or points[0].shape[-1] != scalars.shape[-1] * precompute):
+            or records.shape[0] != scalars.shape[-1] * precompute):
         raise ValueError("msm_window_sums: scalar and point lanes differ")
-    return _window_sums(scalars, list(group_sizes), points, c, precompute)
+    return _window_sums(scalars, list(group_sizes), records, c, precompute)
 
 
-def msm_windows_sliced(scalars: torch.Tensor, group_sizes, points, c: int, max_lanes: int,
+def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_lanes: int,
                        precompute: int = 1):
     """Out-of-core window sums (icicle_snark_tpu/ops/msm.py
     msm_windows_sliced): the concatenated lanes are cut into slices of
@@ -384,9 +555,10 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, points, c: int, max_l
     the in-core pipeline, and K6 adds the slices' window sums in slice
     order. The last slice is padded to the slice width with lanes of the
     sentinel group len(group_sizes), zero scalars and (0, 0) points, so
-    every slice has one shape. Returns stacked (3, coords..., G, wp)."""
+    every slice has one shape. records as for `msm_window_sums`. Returns
+    stacked (3, coords..., G, wp)."""
     total = sum(group_sizes)
-    if scalars.shape[-1] != total or points[0].shape[-1] != total * precompute:
+    if scalars.shape[-1] != total or records.shape[0] != total * precompute:
         raise ValueError("msm_windows_sliced: scalar and point lanes differ")
     width = max_lanes // precompute
     if width < 1:
@@ -399,14 +571,13 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, points, c: int, max_l
     for lo in range(0, max(total, 1), width):
         hi = min(lo + width, total)
         sc, ids = scalars[:, lo:hi], gid[lo:hi]
-        pts = tuple(p[..., precompute * lo: precompute * hi] for p in points)
+        rec = records[precompute * lo: precompute * hi]
         pad = width - (hi - lo)
         if pad:
             sc = torch.cat([sc, sc.new_zeros((NLIMB, pad))], dim=-1)
             ids = torch.cat([ids, ids.new_full((pad,), groups)])
-            pts = tuple(torch.cat([p, p.new_zeros(p.shape[:-1] + (pad * precompute,))], dim=-1)
-                        for p in pts)
-        ws = _window_sums(sc, (ids, groups), pts, c, precompute)
+            rec = torch.cat([rec, rec.new_zeros((pad * precompute, rec.shape[1]))])
+        ws = _window_sums(sc, (ids, groups), rec, c, precompute)
         acc = ws if acc is None else acc_windows(acc, ws)
     return acc
 

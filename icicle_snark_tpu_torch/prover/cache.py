@@ -65,12 +65,16 @@ class ZKeyCache:
     msm_c2: int = 0    # G2 window size
     msm_pre: int = 1   # G1 precompute factor the points were built with
     msm_pre2: int = 1  # G2 precompute factor
-    g1_points: tuple = field(init=False)  # A|B1|C|H concatenated (x, y)
+    # K4's lane-major point records (ops/msm.py point_records), built once
+    g1_records: torch.Tensor = field(init=False)  # A|B1|C|H concatenated
+    b2_records: torch.Tensor = field(init=False)
     g1_sizes: list = field(init=False)    # scalar lanes of each G1 group
 
     def __post_init__(self):
         groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
-        self.g1_points = tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2))
+        self.g1_records = msm_ops.point_records(
+            tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2)))
+        self.b2_records = msm_ops.point_records(self.points_b2)
         self.g1_sizes = [g[0].shape[-1] // self.msm_pre for g in groups]
         self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), 4, self.msm_pre)
         self.msm_c2 = self.msm_c2 or msm_ops.choose_c(

@@ -135,14 +135,14 @@ def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: Z
     # its points are twice the bytes)
     cap, cap2 = msm_ops.MSM_MAX_LANES, msm_ops.MSM_MAX_LANES // 2
     if scalars.shape[-1] * pre > cap:
-        ws1 = msm_ops.msm_windows_sliced(scalars, cache.g1_sizes, cache.g1_points, c, cap, pre)
+        ws1 = msm_ops.msm_windows_sliced(scalars, cache.g1_sizes, cache.g1_records, c, cap, pre)
     else:
-        ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_points, c, pre)
+        ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_records, c, pre)
     n2 = witness.shape[-1]
     if n2 * pre2 > cap2:
-        ws2 = msm_ops.msm_windows_sliced(witness, [n2], cache.points_b2, c2, cap2, pre2)
+        ws2 = msm_ops.msm_windows_sliced(witness, [n2], cache.b2_records, c2, cap2, pre2)
     else:
-        ws2 = msm_ops.msm_window_sums(witness, [n2], cache.points_b2, c2, pre2)
+        ws2 = msm_ops.msm_window_sums(witness, [n2], cache.b2_records, c2, pre2)
     ws1_np, ws2_np = ws1.cpu().numpy(), ws2.cpu().numpy()
     pi_a, pi_b1, pi_c, pi_h = (
         msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1_np, g), c)

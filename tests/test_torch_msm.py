@@ -77,7 +77,7 @@ def test_g1_grouped_window_sums_match_jax():
     sizes = [40, 24]
     c, k = 8, 8
     pts = _g1_port(aff)
-    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), sizes, pts, c)
+    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), sizes, msm.point_records(pts), c)
     assert ws.shape == (3, 8, 2, 32)
 
     jx = jlb.ints_to_limbs_np([fq_to_mont(a[0]) for a in aff])
@@ -104,7 +104,7 @@ def test_g1_skewed_scalars_match_oracle(kind):
     aff = _g1_points(48, 7)
     vals = [R_MOD - 12345] * 48 if kind == "skewed" else [0] * 48
     c = 9
-    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), [48], _g1_port(aff), c)
+    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), [48], msm.point_records(_g1_port(aff)), c)
     got = msm.horner_combine(msm.window_points_to_host_g1(ws.numpy(), 0), c)
     assert cv.g1_eq(got, _oracle_g1(vals, aff))
 
@@ -114,7 +114,7 @@ def test_g2_window_sums_match_jax():
     vals = _full_width(16, 10)
     c = 8
     pts = _g2_port(aff)
-    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), [16], pts, c)
+    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), [16], msm.point_records(pts), c)
     assert ws.shape == (3, 2, 8, 1, 32)
     jpts = tuple(
         jnp.asarray(np.stack([jlb.ints_to_limbs_np([fq_to_mont(a[i][comp]) for a in aff])
@@ -143,29 +143,37 @@ def test_signed_digits_recombine():
 
 
 def test_choose_c_counts_additions():
-    """The cost model assumes scalars spread evenly below the group order r
-    (the h coefficients of every prove are; a witness of small values
-    leaves the high windows empty and is not modelled)."""
+    """The model counts K4's additions (one mixed add per point lane and
+    window, two adds per bucket in the reduce); it assumes scalars spread
+    evenly below the group order r (the h coefficients of every prove are;
+    a witness of small values leaves the high windows empty and takes
+    fewer additions)."""
     assert 8 <= msm.choose_c(100, 4) <= msm.choose_c(431079, 4) <= 16
-    # the serial chains count: c = 13 and 14 crowd the top window's lanes
-    # into 128 and 4 buckets, so the complex-100k MSMs take c = 15
-    assert msm.choose_c(431079, 4) == 15
-    assert msm.choose_c(100003, 1) == 15
-    assert msm.choose_c(6897159, 4) == 16 and msm.choose_c(1600003, 1) == 15
+    # the fastest c measured on an H100: 13 at complex-100k, 16 at complex-1600k
+    assert msm.choose_c(431079, 4) == 13
+    assert msm.choose_c(100003, 1) == 13
+    assert msm.choose_c(6897159, 4) == 16 and msm.choose_c(1600003, 1) == 16
     assert msm.choose_c(64, 1) == 8
 
 
 @pytest.mark.parametrize("c", [13, 14, 15, 16])
 def test_choose_c_top_window_of_uniform_scalars(c):
-    """What `choose_c` assumes of the data: scalars uniform below r fill
-    only 2^(254 - c * floor(253 / c)) buckets of the top window, and every
-    lower window's whole range."""
+    """Scalars uniform below r fill only 2^(254 - c * floor(253 / c))
+    buckets of the top window, and every lower window's whole range. The
+    crowded top window no longer enters `choose_c`: K4 accumulate cuts its
+    long runs into pieces of BUCKET_PIECE, so it only adds fold levels."""
     rng = np.random.default_rng(c)
     vals = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(4096)]
     ab, _neg = msm.window_digits_signed(lb.ints_to_limbs(vals), c)
     top = 253 // c
-    top_bits = msm.SCALAR_DATA_BITS - top * c
+    top_bits = 254 - top * c  # BN254 scalars are below the 254-bit r
     assert ab.shape[0] == -(-256 // c) and not ab[top + 1:].any()
     limit = min(1 << (c - 1), 1 << top_bits)
     assert limit // 2 < int(ab[top].max()) <= limit + 1
     assert int(ab[top - 1].max()) > 1 << (c - 2)
+    order, _negs, ends = msm.sort_windows(lb.ints_to_limbs(vals), [4096], c)
+    plan = msm.bucket_fold_plan(ends, order.shape[0], 1, 1 << (c - 1), 4096)
+    inputs, levels = int(torch.diff(ends.to(torch.int64), dim=1).max()), 1
+    while inputs > msm.BUCKET_PIECE:
+        inputs, levels = -(-inputs // msm.BUCKET_PIECE), levels + 1
+    assert len(plan) == levels

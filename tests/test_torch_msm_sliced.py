@@ -81,7 +81,7 @@ def test_sliced_grouped_g1_matches_direct_jax_and_oracle():
         pts.append(aff[:n_g])
         jgroups.append((jnp.asarray(jlb.ints_to_limbs_np(v)), _jax_g1(aff[:n_g])))
     scalars = lb.ints_to_limbs([x for v in vals for x in v])
-    points = _port_g1([a for p in pts for a in p])
+    points = msm.point_records(_port_g1([a for p in pts for a in p]))
     direct = msm.msm_window_sums(scalars, sizes, points, C).numpy()
     sliced = msm.msm_windows_sliced(scalars, sizes, points, C, max_lanes=48).numpy()
     jws = np.asarray(jmsm.msm_windows_sliced(jgroups, C, 8, False, max_lanes=48))
@@ -99,7 +99,7 @@ def test_sliced_g2_matches_direct_jax_and_oracle():
     aff = _g2_aff(20)
     rng = np.random.default_rng(29)
     vals = [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=20, dtype=np.uint64)]
-    scalars, points = lb.ints_to_limbs(vals), _port_g2(aff)
+    scalars, points = lb.ints_to_limbs(vals), msm.point_records(_port_g2(aff))
     direct = msm.msm_window_sums(scalars, [20], points, C).numpy()
     sliced = msm.msm_windows_sliced(scalars, [20], points, C, max_lanes=8).numpy()
     jws = np.asarray(jmsm.msm_windows_sliced(
@@ -122,7 +122,7 @@ def test_sliced_edge_cases_equal_direct(sizes, max_lanes):
     rng = np.random.default_rng(sum(sizes))
     vals = [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=sum(sizes), dtype=np.uint64)]
     vals[0], vals[1] = 0, R_MOD - 1
-    scalars, points = lb.ints_to_limbs(vals), _port_g1(aff)
+    scalars, points = lb.ints_to_limbs(vals), msm.point_records(_port_g1(aff))
     direct = msm.msm_window_sums(scalars, sizes, points, C).numpy()
     sliced = msm.msm_windows_sliced(scalars, sizes, points, C, max_lanes).numpy()
     lo = 0
@@ -147,7 +147,7 @@ def test_sort_windows_takes_group_ids_and_a_sentinel():
     assert torch.equal(ends, by_size[2])
     assert order[:, -4:].min() >= 12
     with pytest.raises(ValueError):
-        msm.msm_windows_sliced(scalars, [5, 6], _port_g1(_g1_aff(12)), C, 8)
+        msm.msm_windows_sliced(scalars, [5, 6], msm.point_records(_port_g1(_g1_aff(12))), C, 8)
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

@@ -104,10 +104,10 @@ def test_g1_msm_with_precompute_equals_plain_and_oracle(factor):
     vals[0], vals[2], vals[3] = R_MOD - 1, 0, 1
     scalars, points = lb.ints_to_limbs(vals), _port_g1(aff)
     pre = msm.precompute_bases(points, jc.G1, c, factor)
-    ws = msm.msm_window_sums(scalars, sizes, pre, c, precompute=factor)
+    ws = msm.msm_window_sums(scalars, sizes, msm.point_records(pre), c, precompute=factor)
     assert ws.shape == (3, 8, 2, msm.merged_windows(c, factor))
-    plain = msm.msm_window_sums(scalars, sizes, points, c)
-    sliced = msm.msm_windows_sliced(scalars, sizes, pre, c, max_lanes=6 * factor,
+    plain = msm.msm_window_sums(scalars, sizes, msm.point_records(points), c)
+    sliced = msm.msm_windows_sliced(scalars, sizes, msm.point_records(pre), c, max_lanes=6 * factor,
                                     precompute=factor)
     lo = 0
     for g, n_g in enumerate(sizes):
@@ -119,7 +119,7 @@ def test_g1_msm_with_precompute_equals_plain_and_oracle(factor):
             assert cv.g1_eq(got, want)
         lo += n_g
     with pytest.raises(ValueError):
-        msm.msm_window_sums(scalars, sizes, points, c, precompute=factor)
+        msm.msm_window_sums(scalars, sizes, msm.point_records(points), c, precompute=factor)
 
 
 def test_g2_msm_with_precompute_equals_oracle():
@@ -128,7 +128,8 @@ def test_g2_msm_with_precompute_equals_oracle():
     rng = np.random.default_rng(12)
     vals = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(6)]
     pre = msm.precompute_bases(_port_g2(aff), jc.G2, c, factor)
-    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), [6], pre, c, precompute=factor)
+    ws = msm.msm_window_sums(lb.ints_to_limbs(vals), [6], msm.point_records(pre), c,
+                             precompute=factor)
     want = cv.G2_ZERO
     for v, a in zip(vals, aff):
         want = cv.g2_add(want, cv.g2_mul(cv.g2_from_affine(a), v))
@@ -137,7 +138,7 @@ def test_g2_msm_with_precompute_equals_oracle():
 
 
 def test_choose_c_with_factor():
-    assert msm.choose_c(431079, 4, 1) == msm.choose_c(431079, 4) == 15
+    assert msm.choose_c(431079, 4, 1) == msm.choose_c(431079, 4) == 13
     for f in (2, 4):
         assert 8 <= msm.choose_c(100003, 1, f) <= 16
     c, f = msm.choose_c_pre(100003, groups=1, g2=True)
