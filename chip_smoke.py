@@ -3,10 +3,12 @@
     python3 chip_smoke.py        # complex-100k and complex-1600k, the full check
     python3 chip_smoke.py --constraints 2000 --large-constraints 20000   # a rehearsal
     python3 chip_smoke.py --bits-only   # the MSM on a bit-valued witness, nothing else
+    python3 chip_smoke.py --r1cs-only   # construct_r1cs, the r1cs_ntt phase, the K5 pair
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
-     and power limit;
+     and power limit, each kernel's registers and spills, and the SASS
+     instruction census (`cuobjdump -sass`) of the K1, K2 and K5 kernels;
   2. make the complex-N fixture with the port's device setup (K1, K7) and
      build the proving-key cache;
   3. hold every kernel against its plain PyTorch version on the card, on
@@ -15,7 +17,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
      (K1-K4, K7 at complex-N shapes, K4 at every lane of both MSMs; K5, K6
      and K4 once more at the large circuit's shapes in phase 6; K8 at the
      probe's);
-  4. prove through the port's API: a cold first prove, three warm proves
+  4. the coset evaluation (K2 rows, then K5's passes with the keys and h
+     fused in) against its plain version word for word, on the fixture's
+     and on a bit-valued witness, timed, its launches counted (K2 once, K5
+     twice per pass, K1 never);
+     prove through the port's API: a cold first prove, three warm proves
      with per-phase times, a deterministic and a randomized proof that both
      verify, and launch counts showing the kernels ran during one prove;
      proves with a bit-valued witness (msm phase, K4's device time);
@@ -23,10 +29,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      G2 (13, 4) precomputed bases: the deterministic proof equals phase 4's
      byte for byte; the G1 and G2 MSMs timed at c = 12..16 and a few f;
   6. complex-M, the large circuit (default 1 600 000 constraints, domain
-     2^21): device setup, cold cache; K4 against its plain versions on a
+     2^21): device setup, cold cache; K5's passes and tile sweep, K2 (with
+     fold levels on skewed rows), K1 timed, and the coset evaluation of
+     phase 4 at this size, with the fused passes timed beside the bare
+     passes and K1 launches they replace; K4 against its plain versions on a
      bit-valued witness (A, B1, C, B2 scalars in {0, 1}, uniform h) and
      timed beside uniform scalars; K4's constants swept; first prove, three
-     warm proves, a profiled prove, proves with the bit-valued witness;
+     warm proves, a profiled prove (profiled again if a kernel the port
+     launched left no device record), proves with the bit-valued witness;
      four deterministic proofs (default in-core route with K5, NTT forced
      to K3, MSM forced into slices of 2^21 lanes with K6, G2 bases
      precomputed with factor 2) that must be byte-identical; a
@@ -43,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import filecmp
 import json
 import os
@@ -75,6 +86,21 @@ def bound(bytes_moved: float, muls: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = muls / INT_MULS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def warm_card(dev, seconds: float = 2.0):
+    """Keep the card busy for a few seconds (Fr products on a large
+    batch), so that the first kernels timed do not meet it at idle clocks."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    x = torch.ones((3, 8, 1 << 21), dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            lb.mont_mul(x, x, lb.FR_SPEC)
+        torch.cuda.synchronize()
 
 
 def cuda_time(fn, reps: int = 5, warmup: bool = True) -> float:
@@ -178,28 +204,241 @@ def check_field_vec(rep, rng, n, dev):
     return ok
 
 
-def check_r1cs(rep, rng, cache, dev):
+def _skewed_plan(plan, n, piece):
+    """The plan's terms moved into a few long slots: slot 0 takes the
+    first 4096 terms, slots 1-3 piece - 1, piece and piece + 1 terms, slot
+    n (B's first) 1000: K2's fold levels run, several of them for slot 0."""
+    import torch
+
+    from icicle_snark_tpu_torch.prover.cache import build_r1cs_plan
+
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    slots = torch.repeat_interleave(torch.arange(plan.num_slots, device=counts.device), counts)
+    at = 0
+    for slot, size in ((0, 4096), (1, piece - 1), (2, piece), (3, piece + 1), (n, 1000)):
+        slots[at:at + size] = slot
+        at += size
+    return build_r1cs_plan(slots, plan.witness_idx.long(), plan.coefs, n)
+
+
+def check_r1cs(rep, rng, cache, dev, large: bool = False):
+    """K2 against its plain version on the prove's plan with a random
+    witness, then on the plan's terms moved into long slots with the piece
+    patched to 4 (fold levels); timed on the prove's plan. With `large` the
+    times go under the row's "large" key."""
     from icicle_snark_tpu_torch import kernels
     from icicle_snark_tpu_torch.fields import limbs as lb
     from icicle_snark_tpu_torch.prover import pipeline
 
-    nv = cache.header.n_vars
+    plan = cache.plan
+    nv, n = cache.header.n_vars, plan.num_slots // 2
     w = random_field(rng, lb.FR_SPEC.modulus, (nv,), dev)
-    got = pipeline.r1cs_reduce(w, cache.plan)
-    want = pipeline.r1cs_reduce_plain(w, cache.plan)
-    err = max_word_err(got, want)
-    log(f"  r1cs_reduce nnz {cache.plan.coefs.shape[-1]}, slots {cache.plan.num_slots}: max word err {err}")
-    ms = cuda_time(lambda: pipeline.r1cs_reduce(w, cache.plan), 20)
-    plain_ms = cuda_time(lambda: pipeline.r1cs_reduce_plain(w, cache.plan), 1, False)
-    nnz, slots = cache.plan.coefs.shape[-1], cache.plan.num_slots
-    # one product per term and one REDC per nonempty slot; empty slots are 0
-    nonempty = int((cache.plan.offsets[1:] != cache.plan.offsets[:-1]).sum())
-    bms, by = bound(nnz * 36 + (slots + 1) * 4 + nv * 32 + slots * 32,
-                    nnz * MULS_PER_MONT + nonempty * MULS_PER_REDC)
-    rep.add(kernels.R1CS.name, equal_to_plain=err == 0, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            timed=f"complex fixture plan, nnz {nnz}, {slots} slots")
-    return err == 0
+    err = max_word_err(pipeline.r1cs_rows(w, plan), pipeline.r1cs_rows_plain(w, plan))
+    skewed = _skewed_plan(plan, n, 4)
+    with patched((pipeline, "R1CS_PIECE", 4)):
+        levels = len(pipeline.r1cs_fold_plan(skewed, 4)[1])
+        fold_err = max_word_err(pipeline.r1cs_rows(w, skewed), pipeline.r1cs_rows_plain(w, skewed))
+    log(f"  r1cs_rows nnz {plan.coefs.shape[-1]}, rows {n}: max word err {err}; long slots "
+        f"folded in {levels} levels (piece 4): max word err {fold_err}")
+    ms = cuda_time(lambda: pipeline.r1cs_rows(w, plan), 20)
+    _, plain_ms = timed_once(lambda: pipeline.r1cs_rows_plain(w, plan))
+    # the witness gather's share: the same terms reading the witness in order
+    in_order = dataclasses.replace(plan, witness_idx=plan.witness_idx.sort().values.contiguous(),
+                                   folds={})
+    gather_sorted_ms = cuda_time(lambda: pipeline.r1cs_rows(w, in_order), 20)
+    nnz, slots = plan.coefs.shape[-1], plan.num_slots
+    # one product per term, one REDC per nonempty slot, one product for C a row
+    nonempty = int((plan.offsets[1:] != plan.offsets[:-1]).sum())
+    bms, by = bound(nnz * 36 + (slots + 1) * 4 + nv * 32 + 3 * n * 32,
+                    (nnz + n) * MULS_PER_MONT + nonempty * MULS_PER_REDC)
+    worst = max(err, fold_err)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                  sorted_gather_ms=gather_sorted_ms,
+                  timed=f"complex fixture plan, nnz {nnz}, {n} rows (3, 8, {n}) out")
+    log(f"  r1cs_rows {ms:.4f} ms (bound {bms:.4f} ms, {by}); the witness read in index order "
+        f"{gather_sorted_ms:.4f} ms")
+    if large:
+        row = rep.rows[kernels.R1CS.name]
+        row.update(equal_to_plain=row["equal_to_plain"] and worst == 0,
+                   max_abs_err=max(row["max_abs_err"], worst), large=timing)
+    else:
+        rep.add(kernels.R1CS.name, equal_to_plain=worst == 0, max_abs_err=worst, **timing)
+    return worst == 0
+
+
+def time_field_vec(rep, rng, n, dev):
+    """K1's Fr product timed at (3, 8, n) beside its bound, under the row's
+    "large" key (the comparison runs at the small circuit's shape)."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    a = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
+    b = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
+    ms = cuda_time(lambda: lb.mont_mul(a, b, lb.FR_SPEC), 20)
+    bms, by = bound(3 * n * 96, 3 * n * MULS_PER_MONT)
+    rep.rows[kernels.FIELD_VEC.name]["large"] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                                                     timed=f"Fr mont_mul, (3, 8, {n}) int32")
+    log(f"  field_vec Fr mul (3, 8, {n}): {ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+def check_coset(rng, cache, paths, dev, tag, counts_log) -> tuple:
+    """The fused coset evaluation, K2 rows then K5's passes
+    (pipeline.construct_r1cs), against its plain version (r1cs_rows_plain,
+    then ntt.coset_h_plain), word for word, on the fixture's witness and on
+    the bit-valued one; both timed, the kernel path at tiles 2^10 and 2^11
+    too. The launches of one construct_r1cs are a driven path of their
+    own. Returns (ok, timings)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile
+    from icicle_snark_tpu_torch.ops import ntt
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    dom = cache.domain
+    ok, out = True, {}
+    bits = write_bits_witness(paths["wtns"], cache.header.n_public, 7)
+    for label, path in (("fixture", paths["wtns"]), ("bits", bits)):
+        w = lb.words_to_limbs(WtnsFile(path).witness_limbs(), dev)
+        kernels.reset_counts()
+        got = pipeline.construct_r1cs(w, cache)
+        counts = kernels.counts()
+        if label == "fixture":
+            counts_log[f"{tag} construct_r1cs"] = counts
+            passes = len(ntt.block_passes(dom.log_n))
+            if (counts["r1cs_rows"], counts["ntt_block"], counts["field_vec"]) != (1, 2 * passes, 0):
+                log(f"  construct_r1cs launched {counts}: want r1cs_rows 1, ntt_block "
+                    f"{2 * passes}, field_vec 0")
+                ok = False
+        want, plain_ms = timed_once(lambda: ntt.coset_h_plain(
+            pipeline.r1cs_rows_plain(w, cache.plan), dom, cache.keys_br_scaled))
+        err = max_word_err(got, want)
+        ok &= err == 0
+        row = {"max_word_err": err, "plain_ms": plain_ms, "launches": counts,
+               "passes": ntt.block_passes(dom.log_n)}
+        for t in (10, 11):
+            if t > dom.log_n:
+                continue
+            with patched((ntt, "NTT_TILE_LOG", t)):
+                same = bool(torch.equal(pipeline.construct_r1cs(w, cache), want))
+                row[f"tile {t} ms"] = cuda_time(lambda: pipeline.construct_r1cs(w, cache), 10)
+            ok &= same
+            row[f"tile {t} equal"] = same
+        row["ms"] = cuda_time(lambda: pipeline.construct_r1cs(w, cache), 10)
+        out[label] = row
+        log(f"  coset evaluation (K2 + K5) {tag} {label} witness: max word err {err}; "
+            + json.dumps({k: v for k, v in row.items() if k != "launches"})
+            + "; launches " + json.dumps({k: v for k, v in counts.items() if v}))
+    return ok, out
+
+
+def fused_pass_times(rng, dom, dev) -> dict:
+    """The two fused K5 passes beside what they replace, on (3, 8, n):
+    the last inverse pass times the keys against the bare pass and a K1
+    product; the last forward pass writing h against the bare pass and
+    three K1 launches."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import ntt
+
+    fr = lb.FR_SPEC
+    x = random_field(rng, fr.modulus, (3, dom.n), dev)
+    keys = random_field(rng, fr.modulus, (dom.n,), dev)
+    h = torch.empty_like(x[0])
+    (l0, k0, t0), (l1, k1, t1) = ntt.block_passes(dom.log_n)[0], ntt.block_passes(dom.log_n)[-1]
+
+    def keys_fused():
+        ntt.ntt_block(x, dom.stw_inv, l0, k0, t0, True, keys)
+
+    def keys_apart():
+        ntt.ntt_block(x, dom.stw_inv, l0, k0, t0, True)
+        return lb.mont_mul(x, keys, fr)
+
+    def h_fused():
+        ntt.ntt_block(x, dom.stw_fwd, l1, k1, t1, False, dom.r2, h_out=h)
+
+    def h_apart():
+        ntt.ntt_block(x, dom.stw_fwd, l1, k1, t1, False)
+        return lb.mont_mul(lb.sub_mod(lb.mont_mul(x[0], x[1], fr), x[2], fr), dom.r2, fr)
+
+    out = {name: cuda_time(fn, 10) for name, fn in (
+        ("keys fused", keys_fused), ("keys bare pass + K1", keys_apart),
+        ("h fused", h_fused), ("h bare pass + 3 K1", h_apart),
+        ("keys fused again", keys_fused), ("h fused again", h_fused))}
+    log(f"  fused K5 passes at (3, 8, 2^{dom.log_n}), ms: " + json.dumps(out))
+    return out
+
+
+def ptxas_usage() -> dict:
+    """Registers, stack and spill bytes of every kernel, from the build's
+    `-Xptxas -v` output, by mangled entry name."""
+    import re
+
+    from icicle_snark_tpu_torch import kernels
+
+    out = {}
+    for src, text in kernels.build_logs().items():
+        entry = props = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                out.setdefault(entry, {"source": src})
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and props in out:
+                out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_census(sources=("ntt_block.cu", "r1cs.cu", "field_vec.cu")) -> dict:
+    """Static instruction counts of each kernel of the given sources, from
+    `cuobjdump -sass` of the build's object files: the total, each opcode
+    without its modifiers, and the IMAD forms apart (IMAD.MOV, .SHL and
+    .IADD are moves, shifts and adds issued on the multiply pipe)."""
+    import re
+    from collections import Counter
+
+    from icicle_snark_tpu_torch import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    out = {}
+    for src in sources:
+        obj = os.path.join(kernels.BUILD_DIR, f"{src}.{kernels._tag()}.o")
+        text = subprocess.run([cuobjdump, "-sass", obj], capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = out.setdefault(m.group(1), {"source": src, "ops": Counter(), "imad": Counter()})
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if fn is None or not m:
+                continue
+            op = m.group(1)
+            fn["ops"][op.split(".")[0]] += 1
+            if op.startswith("IMAD"):
+                fn["imad"][op] += 1
+    for name, fn in out.items():
+        fn["total"] = sum(fn["ops"].values())
+        fn["ops"] = dict(fn["ops"].most_common(12))
+        fn["imad"] = dict(fn["imad"].most_common())
+        log(f"[sass] {fn['source']} {name}: {fn['total']} instructions; " + json.dumps(fn["ops"])
+            + "; IMAD forms " + json.dumps(fn["imad"]))
+    return out
 
 
 def check_ntt(rep, rng, cache, dev):
@@ -456,7 +695,10 @@ def write_bits_witness(wtns_path: str, n_public: int, seed: int) -> str:
 def kernel_device_ms(fn, match) -> tuple:
     """One call of fn under torch.profiler: (device ms per CUDA kernel name
     that `match` accepts, summed over launches; the other device ms; the
-    wall ms of the call, ending in a synchronise)."""
+    wall ms of the call, ending in a synchronise; what the trace held: its
+    device events, the host's kernel-launch calls, the first device event's
+    start from the trace's start in us, and the largest unmatched device
+    events by name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -467,12 +709,22 @@ def kernel_device_ms(fn, match) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per, other = {}, 0.0
+    per, other, unmatched = {}, 0.0, {}
+    seen = {"device_events": 0, "launch_calls": 0, "first_device_us": None}
+    events = prof.events()
+    t_start = min((e.time_range.start for e in events), default=0)
     # device-side events only (kernels, copies, fills): the host ops that
     # launched them would count the same time again
-    for evt in prof.events():
+    for evt in events:
         if evt.device_type != DeviceType.CUDA:
+            # the host's kernel launches, against the device's kernel records
+            seen["launch_calls"] += evt.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                 "cudaLaunchKernelExC")
             continue
+        seen["device_events"] += 1
+        start = evt.time_range.start - t_start
+        if seen["first_device_us"] is None or start < seen["first_device_us"]:
+            seen["first_device_us"] = start
         ms = evt.time_range.elapsed_us() / 1e3
         if match(evt.name):
             # "void msm_accumulate_kernel<E2, true>(...)" -> "msm_accumulate_kernel<E2, true>"
@@ -480,7 +732,12 @@ def kernel_device_ms(fn, match) -> tuple:
             per[name] = per.get(name, 0.0) + ms
         else:
             other += ms
-    return per, other, wall_ms
+            key = evt.name[:80]
+            n, t = unmatched.get(key, (0, 0.0))
+            unmatched[key] = (n + 1, t + ms)
+    seen["top_other"] = {k: {"count": n, "ms": t} for k, (n, t) in
+                         sorted(unmatched.items(), key=lambda kv: -kv[1][1])[:8]}
+    return per, other, wall_ms, seen
 
 
 def prove_bits(paths, cm, dev, n_public: int, seed: int = 7) -> dict:
@@ -608,8 +865,10 @@ def k4_sweep(cache, dev, rng, pieces=(8, 16, 32, 64),
 
 def check_ntt_block(rep, rng, dom, dev):
     """K5 at (3, 8, n) against K3 stage by stage and against the plain
-    stages, word for word; K5 (at tile sizes 2^10..2^12) and K3 timed on
-    the inverse + forward pair of one coset evaluation."""
+    stages, word for word; K5 (at tiles of 2^10 and 2^11, each equal to the
+    default's words; a tile of 2^12 and its twiddles would need 256 KB of
+    shared memory) and K3 timed on the inverse + forward pair of one coset
+    evaluation."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -655,7 +914,7 @@ def check_ntt_block(rep, rng, dom, dev):
         f"{err_stage}, vs plain stages {err_plain}, roundtrip {roundtrip}")
     ok = err_stage == 0 and err_plain == 0 and roundtrip
     times = {}
-    for t in (10, 11, 12):
+    for t in (10, 11):
         if t > log_n:
             continue
         same = bool(torch.equal(pair(t), fwd_b))
@@ -668,10 +927,12 @@ def check_ntt_block(rep, rng, dom, dev):
     butterflies = 2 * log_n * 3 * n // 2
     bms, by = bound(2 * 3 * n * 32 + 2 * n * 32, (butterflies + 3 * n) * MULS_PER_MONT)
     rep.add(kernels.NTT_BLOCK.name, equal_to_plain=ok, max_abs_err=max(err_stage, err_plain),
-            ms=times[tile] if tile in times else cuda_time(lambda: pair(tile), 5),
+            ms=times.get(tile) or cuda_time(lambda: pair(tile), 5),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            timed=f"intt_dif + ntt_dit, (3, 8, 2^{log_n}), {2 * len(passes)} launches, tile 2^{tile}",
-            tile_ms={str(k): v for k, v in times.items()}, stage_kernel_ms=stage_ms)
+            timed=f"intt_dif + ntt_dit, (3, 8, 2^{log_n}), {2 * len(passes)} launches, "
+                  f"tile 2^{tile}",
+            sweep_ms={f"tile {t}": v for t, v in times.items()},
+            stage_kernel_ms=stage_ms)
     return ok
 
 
@@ -890,25 +1151,39 @@ def check_probe(rep, rng, dev, depth: int = 4096):
 
 # ---------------------------------------------------------------- profile
 
-KERNEL_NAMES = ("field_vec_kernel", "r1cs_reduce_kernel", "ntt_stage_kernel",
-                "msm_accumulate_kernel", "msm_reduce_segments_kernel", "msm_reduce_rows_kernel",
-                "ntt_block_kernel", "point_add_kernel", "point_dbl_k_kernel",
-                "point_to_affine_kernel", "probe_chain_kernel")
+# the device functions of each kernel of kernels.ALL
+KERNEL_FUNCTIONS = {
+    "field_vec": ("field_vec_kernel",), "r1cs_rows": ("r1cs_rows_kernel", "r1cs_fold_kernel"),
+    "ntt_stage": ("ntt_stage_kernel",), "msm_accumulate": ("msm_accumulate_kernel",),
+    "msm_reduce": ("msm_reduce_segments_kernel", "msm_reduce_rows_kernel"),
+    "ntt_block": ("ntt_block_kernel",), "point_add": ("point_add_kernel",),
+    "point_dbl_k": ("point_dbl_k_kernel",), "point_to_affine": ("point_to_affine_kernel",),
+    "probe_chain": ("probe_chain_kernel",),
+}
+KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
 
 def profile_prove(paths, cm) -> dict:
     """One warm deterministic prove under torch.profiler: device time per
     kernel (ms, summed over launches), the other device work, the wall
-    time and the device's idle share of it."""
+    time and the device's idle share of it; with what the trace held and
+    the port's kernels that launched but left no device record there."""
     from icicle_snark_tpu_torch.prover import api
 
-    per, other, wall_ms = kernel_device_ms(
+    from icicle_snark_tpu_torch import kernels
+
+    kernels.reset_counts()
+    per, other, wall_ms, seen = kernel_device_ms(
         lambda: api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"],
                                   cm, deterministic=True),
         lambda name: any(k in name for k in KERNEL_NAMES))
     busy = sum(per.values()) + other
+    # every kernel the port launched must have left a device record
+    missing = [k.name for k in kernels.ALL if k.launches
+               and not any(f in name for f in KERNEL_FUNCTIONS[k.name] for name in per)]
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels_ms": per,
-            "other_device_ms": other,
+            "other_device_ms": other, "port_launches": sum(kernels.counts().values()),
+            "trace": seen, "missing_kernels": missing,
             "idle_share": None if busy == 0 else 1.0 - busy / wall_ms}
 
 
@@ -944,7 +1219,8 @@ def _prove_bytes(api, paths, cm, **kw):
 def drive_proves(tag, paths, cm, dev, failures, counts_log):
     """First prove (deterministic, verified), three warm randomized proves
     with phases (the last verified), launch counts of the first warm one.
-    Returns (first seconds, warm seconds, launches, deterministic proof bytes)."""
+    Returns (first seconds, warm seconds, launches, deterministic proof
+    bytes, the warm proves' phases)."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -958,7 +1234,7 @@ def drive_proves(tag, paths, cm, dev, failures, counts_log):
     log(f"[{tag}] first prove {first:.3f} s")
     if not api.groth16_verify(paths["proof"], paths["public"], paths["vk"]):
         failures.append(f"{tag}: deterministic proof does not verify")
-    warm, launches = [], None
+    warm, launches, phases = [], None, []
     for i in range(3):
         timer = pipeline.PhaseTimer(dev)
         if i == 0:
@@ -968,6 +1244,7 @@ def drive_proves(tag, paths, cm, dev, failures, counts_log):
         if i == 0:
             launches = kernels.counts()
         warm.append(secs)
+        phases.append(timer.phases)
         log(f"[{tag}] warm prove {i}: {secs:.3f} s, phases "
             + json.dumps({k: round(v, 4) for k, v in timer.phases.items()}))
     log(f"[{tag}] launches in one prove: {json.dumps(launches)}")
@@ -976,7 +1253,42 @@ def drive_proves(tag, paths, cm, dev, failures, counts_log):
         failures.append(f"{tag}: randomized proof does not verify")
     else:
         log(f"[{tag}] deterministic and randomized proofs verify")
-    return first, warm, launches, (det, det_pub)
+    return first, warm, launches, (det, det_pub), phases
+
+
+def time_r1cs_ntt(paths, cm, dev) -> dict:
+    """construct_r1cs timed alone (CUDA events) with the fixture's witness,
+    its launches, the bare K5 inverse + forward pair on the domain, and the
+    r1cs_ntt phase of three warm randomized proves.
+    Uses only entry points every slice of the port has had, so a copy of
+    this script in an unpacked earlier tree measures that tree."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+    from icicle_snark_tpu_torch.prover import api, pipeline
+
+    cache = cm.get(paths["zkey"])
+    w = lb.words_to_limbs(WtnsFile(paths["wtns"]).witness_limbs(), dev)
+    ms = cuda_time(lambda: pipeline.construct_r1cs(w, cache), 10)
+    kernels.reset_counts()
+    pipeline.construct_r1cs(w, cache)
+    torch.cuda.synchronize()
+    out = {"construct_r1cs_ms": ms, "launches": {k: v for k, v in kernels.counts().items() if v},
+           "r1cs_ntt_s": []}
+    # the bare inverse + forward pair on a (3, 8, n) batch (check_ntt_block's timing)
+    x = random_field(np.random.default_rng(1), lb.FR_SPEC.modulus, (3, cache.domain.n), dev)
+    out["ntt_pair_ms"] = cuda_time(
+        lambda: ntt_ops.ntt_dit(ntt_ops.intt_dif(x, cache.domain), cache.domain), 5)
+    del x
+    for _ in range(3):
+        timer = pipeline.PhaseTimer(dev)
+        api.groth16_prove(paths["wtns"], paths["zkey"], paths["proof"], paths["public"], cm,
+                          deterministic=False, timer=timer)
+        out["r1cs_ntt_s"].append(timer.phases["r1cs_ntt"])
+    return out
 
 
 def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict:
@@ -1026,6 +1338,11 @@ def main() -> int:
     ap.add_argument("--bits-only", action="store_true",
                     help="build, prove complex-N with a bit-valued witness, print the MSM times "
                          "and stop (uses only entry points every slice of the port has had)")
+    ap.add_argument("--r1cs-only", action="store_true",
+                    help="build, time construct_r1cs and the r1cs_ntt phase at complex-N and "
+                         "complex-M and stop (uses only entry points every slice has had)")
+    ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
+                    help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
 
     import torch
@@ -1063,7 +1380,7 @@ def main() -> int:
 
     # ---- 2. fixture + cold cache
     n = args.constraints
-    fx_dir = os.path.join(HERE, ".fixtures", f"torch_complex_{n}")
+    fx_dir = os.path.join(args.fixture_dir, f"torch_complex_{n}")
     t0 = time.perf_counter()
     _, paths = make_fixture(fx_dir, n, dev)
     log(f"[setup] complex-{n} fixture in {time.perf_counter() - t0:.1f} s")
@@ -1079,10 +1396,23 @@ def main() -> int:
     if args.bits_only:
         log("[bits] " + json.dumps(prove_bits(paths, cm, dev, cache.header.n_public)))
         return 0
+    if args.r1cs_only:
+        log(f"[r1cs] complex-{n}: " + json.dumps(time_r1cs_ntt(paths, cm, dev)))
+        del cm, cache
+        m = args.large_constraints
+        _, big = make_fixture(os.path.join(args.fixture_dir, f"torch_complex_{m}"), m, dev)
+        log(f"[r1cs] complex-{m}: " + json.dumps(time_r1cs_ntt(big, api.CacheManager("cuda"), dev)))
+        return 0
+    usage = ptxas_usage()
+    for name, u in sorted(usage.items()):
+        log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
+            f"{u.get('stack')} B, spill stores {u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+    sass = sass_census()
 
     # ---- 3. kernels against their plain versions (K5 and K6 follow in
     # phase 6, at the large circuit's shapes, with K4 once more)
     rep = Report()
+    warm_card(dev)
     t0 = time.perf_counter()
     checks = [
         ("field_vec", lambda: check_field_vec(rep, rng, cache.domain.n, dev)),
@@ -1101,8 +1431,11 @@ def main() -> int:
     log(f"[kernels] checks in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. proves through the API
-    first_s, warm, launches, det_small = drive_proves(f"complex-{n}", paths, cm, dev, failures,
-                                                      path_counts)
+    coset_ok, coset_small = check_coset(rng, cache, paths, dev, f"complex-{n}", path_counts)
+    if not coset_ok:
+        failures.append(f"the fused coset evaluation differs from its plain version at complex-{n}")
+    first_s, warm, launches, det_small, phases_small = drive_proves(
+        f"complex-{n}", paths, cm, dev, failures, path_counts)
     bits_small = prove_bits(paths, cm, dev, cache.header.n_public)
     log(f"[bits] complex-{n}, bit-valued witness: " + json.dumps(bits_small))
     prof = profile_prove(paths, cm)
@@ -1110,6 +1443,9 @@ def main() -> int:
         log("[profile] the profiler saw no device time")
     else:
         log("[profile] one warm prove: " + json.dumps(prof))
+        if prof["missing_kernels"]:
+            log(f"[profile] WARNING: {prof['missing_kernels']} launched but left no device "
+                "record: the busy time and idle share leave them out")
         if prof["idle_share"] < 0:
             log("[profile] WARNING: summed device time exceeds the wall time "
                 "(overlapping events); the idle share is not a measurement")
@@ -1140,7 +1476,7 @@ def main() -> int:
     del cm, cache
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, big = make_fixture(os.path.join(HERE, ".fixtures", f"torch_complex_{m}"), m, dev)
+    _, big = make_fixture(os.path.join(args.fixture_dir, f"torch_complex_{m}"), m, dev)
     big_setup_s = time.perf_counter() - t0
     log(f"[large] complex-{m} fixture in {big_setup_s:.1f} s")
     cm_big = api.CacheManager("cuda")
@@ -1157,6 +1493,17 @@ def main() -> int:
     if not check_ntt_block(rep, rng, cache_big.domain, dev):
         failures.append("kernel ntt_block differs from its plain version or from K3")
     log(f"[kernels] ntt_block checked in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    if not check_r1cs(rep, rng, cache_big, dev, large=True):
+        failures.append(f"kernel r1cs_rows differs from its plain version at complex-{m}")
+    time_field_vec(rep, rng, cache_big.domain.n, dev)
+    coset_ok, coset_big = check_coset(rng, cache_big, big, dev, f"complex-{m}", path_counts)
+    if not coset_ok:
+        failures.append(f"the fused coset evaluation differs from its plain version at complex-{m}")
+    fused_ms = fused_pass_times(rng, cache_big.domain, dev)
+    torch.cuda.empty_cache()
+    log(f"[kernels] r1cs_rows, field_vec and the coset evaluation at complex-{m} in "
+        f"{time.perf_counter() - t1:.1f} s")
     for name, fn in (
             ("point_add", lambda: check_acc_windows(rep, rng, cache_big, dev)),
             ("msm g1", lambda: check_msm(rep, rng, cache_big, dev, False, large=True)),
@@ -1178,12 +1525,20 @@ def main() -> int:
         failures.append("a K4 sweep variant differs from the default as affine points")
     tag = f"complex-{m}"
     torch.cuda.reset_peak_memory_stats()
-    big_first_s, big_warm, big_launches, det_big = drive_proves(tag, big, cm_big, dev, failures,
-                                                                path_counts)
+    big_first_s, big_warm, big_launches, det_big, phases_big = drive_proves(
+        tag, big, cm_big, dev, failures, path_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[large] peak device memory over the proves {peak_gb:.2f} GB")
     big_prof = profile_prove(big, cm_big)
     log("[large] profile of one warm prove: " + json.dumps(big_prof))
+    if big_prof["missing_kernels"]:
+        # once more: does the loss repeat, or was it the first profile's?
+        again = profile_prove(big, cm_big)
+        log("[large] profile of another warm prove: " + json.dumps(again))
+        big_prof = dict(again, first_profile_missing=big_prof["missing_kernels"])
+    if big_prof["missing_kernels"]:
+        log(f"[large] WARNING: {big_prof['missing_kernels']} launched but left no device record: "
+            "the busy time and idle share leave them out")
     bits_big = prove_bits(big, cm_big, dev, cache_big.header.n_public)
     log(f"[bits] complex-{m}, bit-valued witness: " + json.dumps(bits_big))
     variants = {}
@@ -1282,16 +1637,22 @@ def main() -> int:
             "bound_by": row.get("bound_by"), "library_ms": None,
             "equal_to_plain": row.get("equal_to_plain"), "timed": row.get("timed"),
             **({"large": row["large"]} if "large" in row else {}),
+            # device ms in one profiled warm prove, complex-N and complex-M
+            "prove_device_ms": [sum(v for name, v in pr["kernels_ms"].items()
+                                    if any(f in name for f in KERNEL_FUNCTIONS[k.name]))
+                                for pr in (prof, big_prof)],
         })
         if row.get("equal_to_plain") is None:
             failures.append(f"kernel {k.name} was not held against its plain version")
     summary = {
         "card": card, "constraints": n, "cold_cache_s": cold_cache_s, "first_prove_s": first_s,
-        "warm_prove_s": warm, "launches": launches, "profile": prof, "bits_prove": bits_small,
+        "warm_prove_s": warm, "warm_phases": phases_small, "launches": launches, "profile": prof,
+        "bits_prove": bits_small, "coset": coset_small, "ptxas": usage, "sass": sass,
         "plan_13_4": {"cold_cache_s": plan_cache_s, "prove_s": plan_s, "same_proof": same_plan},
         "msm_plan_ms": plan_ms, "ntt_threshold_sweep": sweep,
         "large": {"constraints": m, "setup_s": big_setup_s, "cold_cache_s": big_cold_s,
                   "first_prove_s": big_first_s, "warm_prove_s": big_warm,
+                  "warm_phases": phases_big, "coset": coset_big, "fused_passes_ms": fused_ms,
                   "launches": big_launches, "profile": big_prof, "peak_memory_gb": peak_gb,
                   "deterministic_variants": variants, "msm_plan_ms": big_plan_ms,
                   "bits_prove": bits_big, "msm_bits": bits_timing, "k4_sweep": sweep_k4,

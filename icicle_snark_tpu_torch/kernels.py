@@ -50,13 +50,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels (if the sources changed) and return the library path."""
+def _tag() -> str:
     h = hashlib.sha256()
     for path in _sources():
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
-    tag = h.hexdigest()[:16]
+    return h.hexdigest()[:16]
+
+
+def build_logs() -> dict:
+    """The compiler's output (`-Xptxas -v`: registers, stack, spills) of
+    each source of the current build, by file name."""
+    tag, out = _tag(), {}
+    for src in _sources():
+        path = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o.log")
+        if os.path.exists(path):
+            with open(path) as fh:
+                out[os.path.basename(src)] = fh.read()
+    return out
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels (if the sources changed) and return the library path."""
+    tag = _tag()
     lib_path = os.path.join(BUILD_DIR, f"libsnark_kernels_{tag}.so")
     if os.path.exists(lib_path):
         return lib_path
@@ -116,16 +132,18 @@ def lib() -> ctypes.CDLL:
 _SIGNATURES = {
     # op, field, out, a, b, nb, n, nbb, m, stream
     "snark_field_vec": [_I, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
-    # out, coefs, widx, offsets, witness, nnz, n_slots, n_vars, stream
-    "snark_r1cs_reduce": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP],
+    # mode, out, coefs, widx, offsets, witness, starts, ends, prev, long_slots,
+    # nnz, n, n_vars, n_prev, n_items, piece, stream
+    "snark_r1cs_rows": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                        _LL, _LL, _LL, _LL, _LL, _I, _VP],
     # x, tw, scale, batch, n, m, inverse, stream
     "snark_ntt_stage": [_VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
     # g2, affine, out, src, n_src, order, negs, start, len, n_items, stream
     "snark_msm_accumulate": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP],
     # g2, stage, out, seg_s, seg_t, buckets, windows, groups, half, seg, nt, stream
     "snark_msm_reduce": [_I, _I, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
-    # x, tw, scale, batch, n, log_n, low, k, tcols_log, inverse, stream
-    "snark_ntt_block": [_VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP],
+    # x, tw, mul, mul_lanes, out, batch, n, log_n, low, k, tcols_log, inverse, stream
+    "snark_ntt_block": [_VP, _VP, _VP, _LL, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP],
     # g2, out, a, b, n, stream
     "snark_point_add": [_I, _VP, _VP, _VP, _LL, _VP],
     # g2, out, in, n, k, stream
@@ -162,7 +180,7 @@ FIELD_VEC = Kernel(
     "icicle_snark_tpu/fields/limbs.py:375",
 )
 R1CS = Kernel(
-    "r1cs_reduce", "snark_r1cs_reduce", "icicle_snark_tpu_torch/csrc/r1cs.cu",
+    "r1cs_rows", "snark_r1cs_rows", "icicle_snark_tpu_torch/csrc/r1cs.cu",
     "icicle_snark_tpu/prover/pipeline.py:55",
 )
 NTT = Kernel(

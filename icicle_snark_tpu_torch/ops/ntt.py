@@ -2,18 +2,23 @@
 
 The prove pipeline never needs natural->natural transforms: `intt_dif`
 takes natural-order values to BIT-REVERSED coefficients (Gentleman-Sande,
-scaled by 1/n), the coset key powers are gathered into bit-reversed order,
-and `ntt_dit` takes bit-reversed input to natural-order values
-(Cooley-Tukey), as in icicle_snark_tpu/ops/ntt.py. `ntt_natural` wraps
-them in a bit-reversal gather.
+scaled by 1/n), the coset key powers are taken in bit-reversed order, and
+`ntt_dit` takes bit-reversed input to natural-order values (Cooley-Tukey),
+as in icicle_snark_tpu/ops/ntt.py. `ntt_natural` wraps them in a
+bit-reversal gather.
 
 Two kernels run the same butterfly network. K3 (`csrc/ntt.cu`) is one
 stage per launch. K5 (`csrc/ntt_block.cu`) runs several consecutive
-stages per launch through shared memory; it is the large-domain transform,
-the port's counterpart of icicle_snark_tpu/ops/mxu_ntt.py, and is taken
-from `NTT_BLOCK_MIN_LOG` up. Every stage's outputs are canonical, so both
-give the same words. For CPU tensors each wrapper runs its plain version
-(`ntt_stage_plain`, `ntt_block_plain`).
+stages per launch (a pass) through shared memory and registers; it is the
+large-domain transform, the port's counterpart of
+icicle_snark_tpu/ops/mxu_ntt.py, and is taken from `NTT_BLOCK_MIN_LOG` up.
+Every stage's outputs are canonical in the plain versions and every pass's
+in K5, so both give the same words. `_inverse_` and `_forward_` hold the
+route and the pass order of both directions. `coset_h` is the prove's whole coset
+evaluation on K5 alone: the last inverse pass multiplies by the coset keys
+(1/n folded in) and the last forward pass writes h = (A B - C) R^2. For
+CPU tensors each wrapper runs its plain version (`ntt_stage_plain`,
+`ntt_block_plain`, `ntt_block_scale_plain`, `ntt_block_h_plain`).
 
 Data layout: (B, 8, n) int32, Montgomery form (fields/limbs.py).
 """
@@ -79,6 +84,7 @@ class NTTDomain:
         self.stw_inv = stage_major(self.tw_inv)
         self.n_inv_mont = lb.const(
             pow(self.n, -1, FR_SPEC.modulus) * FR_SPEC.r_mod % FR_SPEC.modulus, device)
+        self.r2 = lb.const(FR_SPEC.r2, device)  # h's factor R^2 (fused into K5)
         self.bitrev = torch.from_numpy(bitrev_permutation(log_n)).to(device)
 
 
@@ -140,8 +146,8 @@ def ntt_stage(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
 
 # ---------------------------------------------------------------- K5
 
-# Elements of one shared-memory tile (2^10 x 32 bytes = 32 KB), and the
-# fewest columns a tile of a strided pass keeps side by side, so that each
+# Elements of one shared-memory tile (2^10 x 32 bytes = 32 KB, as much again
+# for its twiddles; K5 takes tiles up to 2^11), and the fewest columns a tile of a strided pass keeps side by side, so that each
 # limb row is read 32 consecutive words at a time.
 NTT_TILE_LOG = 10
 NTT_TILE_MIN_COLS_LOG = 5
@@ -180,26 +186,52 @@ def block_passes(log_n: int, tile_log: int | None = None):
     return passes
 
 
-def ntt_block_plain(x: torch.Tensor, stw: torch.Tensor, low: int, k: int, inverse: bool,
-                    scale: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain PyTorch version of K5: the stages of spans 2^(low+1) ..
-    2^(low+k), one plain stage each, in the kernel's order, with the
-    kernel's stage-major twiddle table `stw`."""
+def ntt_block_plain(x: torch.Tensor, stw: torch.Tensor, low: int, k: int,
+                    inverse: bool) -> torch.Tensor:
+    """The plain PyTorch version of a bare K5 pass: the stages of spans
+    2^(low+1) .. 2^(low+k), one plain stage each, in the kernel's order,
+    with the kernel's stage-major twiddle table `stw`."""
     stages = range(low + k, low, -1) if inverse else range(low + 1, low + k + 1)
     for s in stages:
         h = 1 << (s - 1)
-        x = _butterflies_plain(x, stw[:, h - 1: 2 * h - 1], 2 * h, inverse,
-                               scale if inverse and s == 1 else None)
+        x = _butterflies_plain(x, stw[:, h - 1: 2 * h - 1], 2 * h, inverse, None)
     return x
 
 
+def ntt_block_scale_plain(x: torch.Tensor, stw: torch.Tensor, k: int,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5's last inverse pass (low = 0) with its outputs
+    multiplied by `scale`: (8, 1) a constant, (8, n) one factor per lane
+    (the coset keys in bit-reversed order with 1/n folded in)."""
+    y = ntt_block_plain(x, stw, 0, k, True)
+    return lb.field_op_plain(OP_MUL, y, scale, FR_SPEC)
+
+
+def ntt_block_h_plain(x: torch.Tensor, stw: torch.Tensor, low: int, k: int,
+                      r2: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5's last forward pass over the batch (A, B, C):
+    h = (A B - C) * r2, (8, n)."""
+    y = ntt_block_plain(x, stw, low, k, False)
+
+    def op(code, a, b):
+        return lb.field_op_plain(code, a, b, FR_SPEC)
+
+    return op(OP_MUL, op(OP_SUB, op(OP_MUL, y[0], y[1]), y[2]), r2)
+
+
 def ntt_block(x: torch.Tensor, tw: torch.Tensor, low: int, k: int, tcols_log: int,
-              inverse: bool, scale: torch.Tensor | None = None) -> None:
+              inverse: bool, scale: torch.Tensor | None = None,
+              h_out: torch.Tensor | None = None) -> None:
     """k butterfly stages (spans 2^(low+1) .. 2^(low+k)) IN PLACE on x
     (B, 8, n) int32, tiles of 2^k rows by 2^tcols_log columns; descending
     DIF stages when inverse, else ascending DIT stages. `tw` is the
-    STAGE-MAJOR twiddle table (`stage_major`, NTTDomain.stw_*). `scale`
-    (8, 1) multiplies the outputs of the span-2 inverse stage."""
+    STAGE-MAJOR twiddle table (`stage_major`, NTTDomain.stw_*).
+
+    `scale`, the pass's multiplier: for the low = 0 inverse pass, (8, 1) or
+    (8, n), each output times it (lane i times scale[:, i] for a table).
+    With `h_out` (a forward pass over B = 3), the pass writes
+    h = (x0 x1 - x2) * scale, scale (8, 1), into h_out (8, n) and leaves x
+    as it was."""
     if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != NLIMB or not x.is_contiguous():
         raise ValueError(f"ntt_block: want contiguous int32 (B, 8, n), got {tuple(x.shape)}")
     b, _, n = x.shape
@@ -208,8 +240,22 @@ def ntt_block(x: torch.Tensor, tw: torch.Tensor, low: int, k: int, tcols_log: in
             or not 0 <= tcols_log <= low):
         raise ValueError(
             f"ntt_block: bad twiddles {tuple(tw.shape)} or pass ({low}, {k}, {tcols_log}) for n={n}")
+    if h_out is not None:
+        if (inverse or b != 3 or scale is None or scale.shape != (NLIMB, 1)
+                or h_out.shape != (NLIMB, n) or h_out.dtype != torch.int32
+                or not h_out.is_contiguous() or h_out.device != x.device):
+            raise ValueError("ntt_block: h_out is (8, n) int32 for a forward pass over "
+                             "(3, 8, n), with an (8, 1) scale")
+    elif scale is not None and (not inverse or low != 0
+                                or scale.shape not in ((NLIMB, 1), (NLIMB, n))):
+        raise ValueError("ntt_block: scale is for the low = 0 inverse pass, (8, 1) or (8, n)")
     if x.device.type == "cpu":
-        x.copy_(ntt_block_plain(x, tw, low, k, inverse, scale))
+        if h_out is not None:
+            h_out.copy_(ntt_block_h_plain(x, tw, low, k, scale))
+        elif scale is not None:
+            x.copy_(ntt_block_scale_plain(x, tw, k, scale))
+        else:
+            x.copy_(ntt_block_plain(x, tw, low, k, inverse))
         return
     if x.device.type != "cuda":
         raise RuntimeError(f"ntt_block: unsupported device {x.device}")
@@ -217,35 +263,61 @@ def ntt_block(x: torch.Tensor, tw: torch.Tensor, low: int, k: int, tcols_log: in
     scale = None if scale is None else scale.contiguous()
     kernels.NTT_BLOCK.launch(
         x.data_ptr(), tw.data_ptr(), None if scale is None else scale.data_ptr(),
+        0 if scale is None else scale.shape[-1], None if h_out is None else h_out.data_ptr(),
         b, n, log_n, low, k, tcols_log, int(inverse),
     )
 
 
 # ---------------------------------------------------------------- transforms
 
+def _inverse_(y: torch.Tensor, dom: NTTDomain, scale: torch.Tensor) -> None:
+    """The inverse network IN PLACE on y (B, 8, n), natural in, bit-reversed
+    out, each output times `scale`, (8, 1) or (8, n). K5 from
+    NTT_BLOCK_MIN_LOG up (the scale fused into the low = 0 pass), else K3
+    stage by stage (an (8, 1) scale fused into the last stage, an (8, n)
+    one a K1 product after it)."""
+    if dom.log_n >= NTT_BLOCK_MIN_LOG:
+        for low, k, tcols in reversed(block_passes(dom.log_n)):
+            ntt_block(y, dom.stw_inv, low, k, tcols, True, scale if low == 0 else None)
+        return
+    lanes = scale.shape[-1] == 1
+    for s in range(dom.log_n, 0, -1):
+        ntt_stage(y, dom.tw_inv, 1 << s, True, scale if lanes and s == 1 else None)
+    if not lanes:
+        y.copy_(lb.mont_mul(y, scale, FR_SPEC))
+
+
+def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None) -> None:
+    """The forward network IN PLACE on y (B, 8, n), bit-reversed in,
+    natural out. With `h_out` (B = 3: A, B, C) it writes
+    h = (A B - C) R^2 there instead, fused into K5's last pass (K3: three
+    K1 launches after the stages), and y is scratch."""
+    if dom.log_n >= NTT_BLOCK_MIN_LOG:
+        passes = block_passes(dom.log_n)
+        for i, (low, k, tcols) in enumerate(passes):
+            last = h_out is not None and i == len(passes) - 1
+            ntt_block(y, dom.stw_fwd, low, k, tcols, False, dom.r2 if last else None,
+                      h_out if last else None)
+        return
+    for s in range(1, dom.log_n + 1):
+        ntt_stage(y, dom.tw_fwd, 1 << s, False)
+    if h_out is not None:
+        h_raw = lb.sub_mod(lb.mont_mul(y[0], y[1], FR_SPEC), y[2], FR_SPEC)
+        h_out.copy_(lb.mont_mul(h_raw, dom.r2, FR_SPEC))
+
+
 def intt_dif(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
     """Inverse NTT of (B, 8, n), natural input -> BIT-REVERSED output, times
     1/n. K5 from NTT_BLOCK_MIN_LOG up, else K3."""
     y = x.clone().contiguous()
-    if dom.log_n >= NTT_BLOCK_MIN_LOG:
-        for low, k, tcols in reversed(block_passes(dom.log_n)):
-            ntt_block(y, dom.stw_inv, low, k, tcols, True, dom.n_inv_mont if low == 0 else None)
-        return y
-    for s in range(dom.log_n, 0, -1):
-        m = 1 << s
-        ntt_stage(y, dom.tw_inv, m, True, dom.n_inv_mont if m == 2 else None)
+    _inverse_(y, dom, dom.n_inv_mont)
     return y
 
 
 def ntt_dit(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
     """Forward NTT of (B, 8, n), BIT-REVERSED input -> natural output."""
     y = x.clone().contiguous()
-    if dom.log_n >= NTT_BLOCK_MIN_LOG:
-        for low, k, tcols in block_passes(dom.log_n):
-            ntt_block(y, dom.stw_fwd, low, k, tcols, False)
-        return y
-    for s in range(1, dom.log_n + 1):
-        ntt_stage(y, dom.tw_fwd, 1 << s, False)
+    _forward_(y, dom)
     return y
 
 
@@ -255,3 +327,31 @@ def ntt_natural(x: torch.Tensor, dom: NTTDomain, inverse: bool = False) -> torch
     if inverse:
         return intt_dif(x, dom)[..., dom.bitrev]
     return ntt_dit(x[..., dom.bitrev], dom)
+
+
+# ---------------------------------------------------------------- coset evaluation
+
+def coset_h(x: torch.Tensor, dom: NTTDomain, keys_br_scaled: torch.Tensor) -> torch.Tensor:
+    """The prove's coset evaluation of the batch x = (A, B, C), (3, 8, n):
+    h = (A' B' - C') R^2 with P' = NTT(keys * INTT(P)) on the coset, as
+    (8, n). Runs IN PLACE on x (x is scratch afterwards). `keys_br_scaled`
+    (8, n) is the coset key powers in bit-reversed order times 1/n
+    (ZKeyCache.keys_br_scaled). From NTT_BLOCK_MIN_LOG up: K5 passes only,
+    the keys fused into the last inverse pass and h into the last forward
+    pass; below it K3 stages and K1 products."""
+    h = torch.empty_like(x[0])
+    _inverse_(x, dom, keys_br_scaled)
+    _forward_(x, dom, h)
+    return h
+
+
+def coset_h_plain(x: torch.Tensor, dom: NTTDomain, keys_br_scaled: torch.Tensor) -> torch.Tensor:
+    """Plain version of `coset_h`'s K5 path, pass by pass (x untouched)."""
+    passes = block_passes(dom.log_n)
+    for low, k, _ in reversed(passes):
+        x = (ntt_block_scale_plain(x, dom.stw_inv, k, keys_br_scaled) if low == 0
+             else ntt_block_plain(x, dom.stw_inv, low, k, True))
+    for low, k, _ in passes[:-1]:
+        x = ntt_block_plain(x, dom.stw_fwd, low, k, False)
+    low, k, _ = passes[-1]
+    return ntt_block_h_plain(x, dom.stw_fwd, low, k, dom.r2)

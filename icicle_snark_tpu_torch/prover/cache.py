@@ -8,7 +8,11 @@ and the coefficient table, build the R1CS plan and the coset key powers.
     snarkjs radix): the (n, 8) words upload with a transpose only.
   * The R1CS plan is CSR: records sorted by output slot (torch.sort),
     per-slot counts (bincount) and row offsets (cumsum). Kernel K2 reduces
-    each row mod r term by term, so one level serves every fan-in.
+    each row mod r term by term, so one level serves every fan-in; slots
+    of more than `pipeline.R1CS_PIECE` terms get fold tables at first use
+    (`pipeline.r1cs_fold_plan`, kept in `folds`).
+  * The coset keys are kept only in bit-reversed order with 1/n folded in
+    (`keys_br_scaled`), the multiplier of K5's last inverse pass.
   * The MSM plan ((c, f) for the grouped G1 MSM and for the G2 MSM) is
     baked in at cache build: with a precompute factor f > 1 the bases are
     the f interleaved shifted copies of ops/msm.py `precompute_bases`
@@ -18,12 +22,13 @@ and the coefficient table, build the R1CS plan and the coset key powers.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 
 import torch
 
 from ..curve import jcurve as jc
-from ..fields.limbs import words_to_limbs
+from ..fields import limbs as lb
+from ..fields.limbs import FR_SPEC, words_to_limbs
 from ..io.zkey import ZKeyFile, ZKeyHeader
 from ..ops import msm as msm_ops
 from ..ops.ntt import NTTDomain, powers_mont
@@ -48,6 +53,8 @@ class R1CSPlan:
     coefs: torch.Tensor        # (8, nnz) int32 Montgomery limbs
     offsets: torch.Tensor      # (num_slots + 1,) int32 row offsets
     num_slots: int             # 2 * domain_size
+    # K2's fold tables by piece size (prover/pipeline.py r1cs_fold_plan)
+    folds: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclass
@@ -59,7 +66,9 @@ class ZKeyCache:
     points_b2: tuple   # (x, y): each (2, 8, n_vars * msm_pre2)
     points_c: tuple
     points_h: tuple
-    keys: torch.Tensor  # (8, n) Montgomery coset key powers, NATURAL order
+    # (8, n) Montgomery coset key powers, NATURAL order: only read to build
+    # keys_br_scaled, not kept
+    keys: InitVar[torch.Tensor]
     domain: NTTDomain
     msm_c: int = 0     # G1 grouped window size (0: chosen here)
     msm_c2: int = 0    # G2 window size
@@ -69,8 +78,12 @@ class ZKeyCache:
     g1_records: torch.Tensor = field(init=False)  # A|B1|C|H concatenated
     b2_records: torch.Tensor = field(init=False)
     g1_sizes: list = field(init=False)    # scalar lanes of each G1 group
+    # keys[:, bitrev] * n^-1 (Montgomery): K5's last inverse pass multiplies by it
+    keys_br_scaled: torch.Tensor = field(init=False)
 
-    def __post_init__(self):
+    def __post_init__(self, keys):
+        dom = self.domain
+        self.keys_br_scaled = lb.mont_mul(keys[:, dom.bitrev].contiguous(), dom.n_inv_mont, FR_SPEC)
         groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
         self.g1_records = msm_ops.point_records(
             tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2)))

@@ -3,7 +3,9 @@
 Takes the fields of an icicle_snark_tpu ZKeyCache as numpy arrays (its
 (16, n) 16-bit limb layout) so both packages can run on identical state.
 Imports nothing of the JAX package: the caller converts its arrays with
-np.asarray.
+np.asarray. The cache derives its own tables from what is given here (K4's
+point records, the bit-reversed scaled coset keys of K5's last inverse
+pass), as a cache loaded from a zkey does.
 """
 
 from __future__ import annotations

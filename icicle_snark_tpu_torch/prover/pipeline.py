@@ -7,10 +7,10 @@ byte-identical:
   stage                here                                      kernel
   -------------------  ----------------------------------------  ------
   witness ingest       (n, 8) words -> (8, n) limbs (transpose)  -
-  R1CS evaluation      CSR rows: sum_j coef*w mod r, then REDC   K2
-  A*B -> C             Montgomery product                        K1
-  coset evaluation     bit-reversed INTT, key powers, NTT        K3/K5, K1
-  h values             (A*B - C) on the coset, times R^2         K1
+  R1CS evaluation      per row: sum_j coef*w mod r, REDC, and    K2
+                       C = A*B, into the (3, 8, n) batch
+  coset evaluation     bit-reversed INTT, key powers, NTT        K5 (K3, K1
+  h values             (A*B - C) on the coset, times R^2         below 2^3)
   5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2)        K4 (K6 sliced)
   randomization        host projective ops (refmath)             -
   serialization        decimal strings                           -
@@ -20,7 +20,7 @@ Montgomery bookkeeping (R = 2^256, the snarkjs on-disk radix):
   mont_mul(coef_disk, w)     = c*w                     == res*R, res per reference
   a_vals = REDC(sum c*w)     = sum(res)                (standard: the oracle's)
   c_vals = mont_mul(a, b)    = a*b*R^-1                (carries R^-1)
-  coset  = mont_mul(x, key*R) = x*key                  (factors preserved)
+  coset  = mont_mul(x, key*R/n) = x*key/n              (1/n and keys in one product)
   h_raw  = mont_mul(A_odd, B_odd) - C_odd              == h*R^-1
   h      = mont_mul(h_raw, R^2)                        (the H MSM scalar integers)
 
@@ -31,11 +31,9 @@ stages, because its one-shot graph did not fit its chip's memory. Here the
 NTT picks K5 from the domain size (ops/ntt.py), the MSM slices only past
 `msm_ops.MSM_MAX_LANES` point lanes, and `construct_r1cs` has NO staged
 variant: at the largest supported domain, 2^22, the (3, 8, 2^22) int32
-batch is 3 * 8 * 4 * 2^22 = 403 MB, and the one-shot flow holds at most the
-A/B evaluations (268 MB), the batch, its transform and the shifted copy
-(3 x 403 MB), three (8, 2^22) temporaries (403 MB), the key powers and two
-twiddle tables (403 MB) and the gathered bit-reversed keys (134 MB): under
-3 GB of an 80 GB card.
+batch is 3 * 8 * 4 * 2^22 = 403 MB, transformed in place, and the flow
+holds beside it h (134 MB), the bit-reversed key table and the four
+twiddle tables (604 MB): about 1.1 GB of an 80 GB card.
 """
 
 from __future__ import annotations
@@ -51,14 +49,46 @@ from ..io.wtns import WtnsFile
 from ..ops import msm as msm_ops
 from ..ops import ntt as ntt_ops
 from ..refmath import curve as cv
-from ..refmath.field import MONT_R_FR, R_MOD
+from ..refmath.field import R_MOD
 from ..refmath.groth16 import serialize_proof
 from .cache import R1CSPlan, ZKeyCache
 
-_R2_FR = MONT_R_FR * MONT_R_FR % R_MOD
-
 
 # ---------------------------------------------------------------- K2
+
+# The most terms (or partial sums) one K2 thread adds: a slot with more is
+# summed in pieces of at most R1CS_PIECE by fold launches first. Read at
+# every call (tests patch it); the fold tables are built once per value.
+R1CS_PIECE = 32
+
+
+def r1cs_fold_plan(plan: R1CSPlan, piece: int):
+    """(long_slots, levels) of K2 for slots of more than `piece` terms:
+    long_slots (L,) int32, sorted; levels a list of (lo, hi) int32 ranges,
+    one per piece. Level 0's ranges index the terms, each later level's the
+    previous level's partial sums, which lie slot by slot; the last level
+    leaves one partial per long slot. Built once per piece size, kept on
+    the plan."""
+    if piece in plan.folds:
+        return plan.folds[piece]
+    if piece < 2:
+        raise ValueError(f"r1cs_fold_plan: pieces of {piece} term(s) never fold")
+    offsets = plan.offsets.long()
+    counts = offsets[1:] - offsets[:-1]
+    long_slots = torch.nonzero(counts > piece).flatten()
+    levels = []
+    start, cur = offsets[long_slots], counts[long_slots]
+    while cur.numel() and int(cur.max()) > 1:
+        pieces = (cur + piece - 1) // piece
+        owner = torch.repeat_interleave(torch.arange(cur.numel(), device=cur.device), pieces)
+        first = torch.cumsum(pieces, 0) - pieces
+        lo = start[owner] + (torch.arange(owner.numel(), device=cur.device) - first[owner]) * piece
+        hi = torch.minimum(lo + piece, (start + cur)[owner])
+        levels.append((lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()))
+        start, cur = first, pieces
+    plan.folds[piece] = (long_slots.to(torch.int32).contiguous(), levels)
+    return plan.folds[piece]
+
 
 def _redc_wide16(cols: torch.Tensor) -> torch.Tensor:
     """X * R^-1 mod r for lazy (16, n) int64 columns of X < R*r (16-bit
@@ -74,32 +104,66 @@ def _redc_wide16(cols: torch.Tensor) -> torch.Tensor:
     return lb._cond_sub_p16(lb._normalize(acc[16:]), FR_SPEC)
 
 
-def r1cs_reduce_plain(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
-    """Plain version of K2: per slot, sum of mont_mul(coef, w[idx]) mod r
-    times R^-1, as (8, num_slots)."""
+def _range_cols(src: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Lazy (16, P) int64 columns of sum(src[:, lo[p]:hi[p]]) per range p."""
+    lo, counts = lo.long(), (hi - lo).long()
+    owner = torch.repeat_interleave(torch.arange(lo.numel(), device=src.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    idx = lo[owner] + torch.arange(owner.numel(), device=src.device) - first[owner]
+    cols = torch.zeros((16, lo.numel()), dtype=torch.int64, device=src.device)
+    cols.index_add_(1, owner, lb._to16(src[:, idx]))
+    return cols
+
+
+def r1cs_rows_plain(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
+    """Plain version of K2, with its fold plan: the (3, 8, n) batch of A,
+    B (per slot, the sum of mont_mul(coef, w[idx]) mod r times R^-1) and
+    C = mont_mul(A, B)."""
+    long_slots, levels = r1cs_fold_plan(plan, R1CS_PIECE)
     prod = lb.field_op_plain(lb.OP_MUL, plan.coefs, witness[:, plan.witness_idx.long()], FR_SPEC)
-    counts = (plan.offsets[1:] - plan.offsets[:-1]).long()
-    slot = torch.repeat_interleave(torch.arange(plan.num_slots, device=witness.device), counts)
-    cols = torch.zeros((16, plan.num_slots), dtype=torch.int64, device=witness.device)
-    cols.index_add_(1, slot, lb._to16(prod))
-    return lb._from16(_redc_wide16(cols))
+    r2 = lb.const(FR_SPEC.r2, witness.device)
+    src = prod
+    for lo, hi in levels:  # partial sums mod r: REDC, then times R^2
+        part = lb._from16(_redc_wide16(_range_cols(src, lo, hi)))
+        src = lb.field_op_plain(lb.OP_MUL, part, r2, FR_SPEC)
+    cols = _range_cols(prod, plan.offsets[:-1], plan.offsets[1:])
+    if long_slots.numel():
+        cols[:, long_slots.long()] = lb._to16(src)
+    vals = lb._from16(_redc_wide16(cols))
+    n = plan.num_slots // 2
+    a, b = vals[:, :n], vals[:, n:]
+    return torch.stack([a, b, lb.field_op_plain(lb.OP_MUL, a, b, FR_SPEC)])
 
 
-def r1cs_reduce(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
-    """A and B evaluations: (8, n_vars) standard witness -> (8, 2n)
-    (slots [0, n) = A, [n, 2n) = B), standard form."""
+def r1cs_rows(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
+    """The batch K5 transforms, (3, 8, n): A and B evaluations (slots
+    [0, n) and [n, 2n) of the plan, standard form) and C = A B R^-1."""
     if witness.dtype != torch.int32 or witness.dim() != 2 or witness.shape[0] != NLIMB:
-        raise ValueError(f"r1cs_reduce: want int32 (8, n_vars), got {tuple(witness.shape)}")
+        raise ValueError(f"r1cs_rows: want int32 (8, n_vars), got {tuple(witness.shape)}")
     if witness.device.type == "cpu":
-        return r1cs_reduce_plain(witness, plan)
+        return r1cs_rows_plain(witness, plan)
     if witness.device.type != "cuda":
-        raise RuntimeError(f"r1cs_reduce: unsupported device {witness.device}")
+        raise RuntimeError(f"r1cs_rows: unsupported device {witness.device}")
     witness = witness.contiguous()
-    out = torch.empty((NLIMB, plan.num_slots), dtype=torch.int32, device=witness.device)
+    piece = R1CS_PIECE
+    long_slots, levels = r1cs_fold_plan(plan, piece)
+    nnz, n = plan.coefs.shape[-1], plan.num_slots // 2
+    prev = None
+    for lo, hi in levels:
+        part = torch.empty((NLIMB, lo.numel()), dtype=torch.int32, device=witness.device)
+        kernels.R1CS.launch(
+            1, part.data_ptr(), plan.coefs.data_ptr(), plan.witness_idx.data_ptr(),
+            plan.offsets.data_ptr(), witness.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            None if prev is None else prev.data_ptr(), None, nnz, n, witness.shape[-1],
+            0 if prev is None else prev.shape[-1], lo.numel(), piece,
+        )
+        prev = part
+    out = torch.empty((3, NLIMB, n), dtype=torch.int32, device=witness.device)
     kernels.R1CS.launch(
-        out.data_ptr(), plan.coefs.data_ptr(), plan.witness_idx.data_ptr(),
-        plan.offsets.data_ptr(), witness.data_ptr(), plan.coefs.shape[-1],
-        plan.num_slots, witness.shape[-1],
+        0, out.data_ptr(), plan.coefs.data_ptr(), plan.witness_idx.data_ptr(),
+        plan.offsets.data_ptr(), witness.data_ptr(), None, None,
+        None if prev is None else prev.data_ptr(), long_slots.data_ptr(), nnz, n,
+        witness.shape[-1], 0, long_slots.numel(), piece,
     )
     return out
 
@@ -108,18 +172,9 @@ def r1cs_reduce(witness: torch.Tensor, plan: R1CSPlan) -> torch.Tensor:
 
 def construct_r1cs(witness: torch.Tensor, cache: ZKeyCache) -> torch.Tensor:
     """(8, n_vars) standard witness -> (8, n) standard h scalars
-    (reference: construct_r1cs, proof_helper.rs:31-170)."""
-    n = cache.header.domain_size
-    dom = cache.domain
-    ab = r1cs_reduce(witness, cache.plan)
-    a_vals, b_vals = ab[:, :n], ab[:, n:]
-    c_vals = lb.mont_mul(a_vals, b_vals, FR_SPEC)  # carries R^-1
-    vec = torch.stack([a_vals, b_vals, c_vals])  # (3, 8, n)
-    coeffs_br = ntt_ops.intt_dif(vec, dom)
-    shifted = lb.mont_mul(coeffs_br, cache.keys[:, dom.bitrev], FR_SPEC)
-    odd = ntt_ops.ntt_dit(shifted, dom)
-    h_raw = lb.sub_mod(lb.mont_mul(odd[0], odd[1], FR_SPEC), odd[2], FR_SPEC)
-    return lb.mont_mul(h_raw, lb.const(_R2_FR, witness.device), FR_SPEC)
+    (reference: construct_r1cs, proof_helper.rs:31-170): K2 writes the
+    (A, B, C) batch, K5 transforms it in place and writes h."""
+    return ntt_ops.coset_h(r1cs_rows(witness, cache.plan), cache.domain, cache.keys_br_scaled)
 
 
 def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: ZKeyCache):
@@ -175,7 +230,7 @@ def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=Non
     """Full prove from a witness file against a warm cache; returns
     (proof_dict, public_signals). Randomization and assembly run on the
     host (proof_helper.rs:274-295)."""
-    device = cache.keys.device
+    device = cache.keys_br_scaled.device
     timer = timer or PhaseTimer(device)
     hdr = cache.header
     wtns = WtnsFile(wtns_path)

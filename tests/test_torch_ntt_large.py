@@ -2,8 +2,9 @@
 large-domain transform: `mxu_ntt.ntt_mxu` (the matmul NTT) and
 `ntt_ops.ntt_natural`, forward and inverse, exact integer equality; K5's
 plain path against K3's plain stages for every forced tile size; and an
-integer model of the kernel's tile index arithmetic against the plain
-radix-2 network."""
+integer model of the kernel's tile index arithmetic (swizzled shared
+memory, pairs of stages in registers, the tile's stage-major twiddles
+staged in shared memory) against the plain radix-2 network."""
 
 import random
 
@@ -101,37 +102,72 @@ def _stage_ints(x, tw, n, m, inverse, scale):
     return y
 
 
-def _block_pass_ints(x, stw, n, log_n, low, k, tcols_log, inverse, scale):
+def _swz(e):
+    """csrc/ntt_block.cu swz(): the shared-memory word of tile element e."""
+    return e ^ (31 * ((e >> 5) & 1)) ^ (26 * ((e >> 6) & 1)) ^ (20 * ((e >> 7) & 1))
+
+
+def _group_items(tile_log, tcols_log, j0, g):
+    """Each item of a group's loop (b = 0, 1, ...): its column, the row
+    bits below the group, and its 2^g tile elements."""
+    cols = 1 << tcols_log
+    for b in range((1 << tile_log) >> g):
+        c, rb = b & (cols - 1), b >> tcols_log
+        below = rb & ((1 << j0) - 1)
+        r0 = ((rb >> j0) << (j0 + g)) | below
+        yield c, below, [((r0 | (q << j0)) << tcols_log) | c for q in range(1 << g)]
+
+
+def _twiddle_lane(e, low, tcols_log, t):
+    """csrc/ntt_block.cu load_twiddles(): the stage-major lane that the
+    tile's twiddle entry e holds (e = ((2^jb - 1 + jj) << tc) | c)."""
+    row = (e >> tcols_log) + 1
+    jb = row.bit_length() - 1
+    return ((1 << (low + jb)) - 1) + ((row - (1 << jb)) << low) + ((t << tcols_log)
+                                                                  | (e & ((1 << tcols_log) - 1)))
+
+
+def _block_pass_ints(x, stw, n, low, k, tcols_log, inverse, scale):
     """csrc/ntt_block.cu, one block after another, on Python integers: the
-    same tile gather, row pairing and stage-major twiddle index as the
-    kernel."""
-    cols, tile = 1 << tcols_log, 1 << (k + tcols_log)
+    tile gather into the swizzled shared array, the tile's twiddles copied
+    into their shared table, the pairs of row bits (top down for the DIF,
+    an odd k ending in a single bit), each item's elements and their
+    butterflies with the twiddle read from the table, and the outputs
+    times `scale` (the low = 0 inverse pass)."""
+    cols, tile_log = 1 << tcols_log, k + tcols_log
     tiles = (1 << low) >> tcols_log
     x = list(x)
-    for blk in range(n >> (k + tcols_log)):
+    for blk in range(n >> tile_log):
         q, t = divmod(blk, tiles)
         base = (q << (low + k)) | (t << tcols_log)
-        where = [base | ((e >> tcols_log) << low) | (e & (cols - 1)) for e in range(tile)]
-        sm = [x[i] for i in where]
-        for step in range(k):
-            j = k - step if inverse else step + 1
-            hrow = 1 << (j - 1)
-            for b in range(tile >> 1):
-                c, rb = b & (cols - 1), b >> tcols_log
-                jj = rb & (hrow - 1)
-                e0 = ((((rb >> (j - 1)) << j) | jj) << tcols_log) | c
-                e1 = e0 + (hrow << tcols_log)
-                w = stw[(1 << (low + j - 1)) - 1 + ((jj << low) | (t << tcols_log) | c)]
-                u, v = sm[e0], sm[e1]
-                if inverse:
-                    a, d = (u + v) % R_MOD, (u - v) * w % R_MOD
-                    if scale is not None and low + j == 1:
-                        a, d = a * scale % R_MOD, d * scale % R_MOD
-                else:
-                    a, d = (u + v * w) % R_MOD, (u - v * w) % R_MOD
-                sm[e0], sm[e1] = a, d
-        for i, v in zip(where, sm):
-            x[i] = v
+        where = [base | ((e >> tcols_log) << low) | (e & (cols - 1)) for e in range(1 << tile_log)]
+        sm = [0] * (1 << tile_log)
+        for e, i in enumerate(where):
+            sm[_swz(e)] = x[i]
+        st = [stw[_twiddle_lane(e, low, tcols_log, t)] for e in range(((1 << k) - 1) << tcols_log)]
+        groups = (k + 1) // 2
+        for gi in (range(groups - 1, -1, -1) if inverse else range(groups)):
+            j0 = 2 * gi
+            g = min(2, k - j0)
+            for c, below, es in _group_items(tile_log, tcols_log, j0, g):
+                v = [sm[_swz(e)] for e in es]
+                for sg in (range(g - 1, -1, -1) if inverse else range(g)):
+                    jb = j0 + sg
+                    for lowv in range(1 << sg):
+                        jj = below | (lowv << j0)
+                        w = st[(((1 << jb) - 1 + jj) << tcols_log) | c]
+                        for hv in range(1 << (g - 1 - sg)):
+                            q0 = lowv | (hv << (sg + 1))
+                            q1 = q0 | (1 << sg)
+                            u, vv = v[q0], v[q1]
+                            if inverse:
+                                v[q0], v[q1] = (u + vv) % R_MOD, (u - vv) * w % R_MOD
+                            else:
+                                v[q0], v[q1] = (u + vv * w) % R_MOD, (u - vv * w) % R_MOD
+                for e, val in zip(es, v):
+                    sm[_swz(e)] = val
+        for e, i in enumerate(where):
+            x[i] = sm[_swz(e)] if scale is None else sm[_swz(e)] * scale % R_MOD
     return x
 
 
@@ -153,8 +189,45 @@ def test_kernel_index_model_matches_radix2_network(log_n, tile_log, inverse):
     stw = [v * lb.FR_SPEC.rinv % R_MOD for v in lb.limbs_to_ints(table)]
     got = list(x)
     for low, k, tcols in (reversed(passes) if inverse else passes):
-        got = _block_pass_ints(got, stw, n, log_n, low, k, tcols, inverse, scale)
+        got = _block_pass_ints(got, stw, n, low, k, tcols, inverse, scale if low == 0 else None)
     assert got == want
+
+
+@pytest.mark.parametrize("tile_log", [10, 11, 12])
+def test_kernel_swizzle_spreads_lanes_over_banks(tile_log):
+    """In every pair of stages of the pass with low = 0 (T = 1), the 32
+    lanes of a warp read 32 different banks for each of their elements,
+    and swz() is a permutation of the tile."""
+    assert sorted(map(_swz, range(1 << tile_log))) == list(range(1 << tile_log))
+    for j0 in range(0, tile_log, 2):
+        g = min(2, tile_log - j0)
+        items = list(_group_items(tile_log, 0, j0, g))
+        for warp in range(0, len(items), 32):
+            for q in range(1 << g):
+                banks = {_swz(es[q]) % 32 for _c, _b, es in items[warp:warp + 32]}
+                assert len(banks) == 32
+
+
+@pytest.mark.parametrize("log_n,tile_log", [(21, 10), (21, 11), (22, 10)])
+def test_kernel_twiddle_table_is_the_tiles_stage_lanes(log_n, tile_log):
+    """For every pass of the full-size domains and a few of its tiles, the
+    tile's shared twiddle table holds, entry for entry, the stage-major lane
+    each butterfly of the plain network reads, and fits beside the tile in
+    the shared memory a block may take (227 KB; H holds two tiles)."""
+    for low, k, tcols in ntt.block_passes(log_n, tile_log):
+        entries = ((1 << k) - 1) << tcols
+        assert entries < 1 << (k + tcols) and (96 << (k + tcols)) <= 227 * 1024
+        tiles = (1 << low) >> tcols
+        for t in {0, tiles // 2, tiles - 1}:
+            lanes = {}
+            for jb in range(k):
+                for jj in range(1 << jb):
+                    for c in range(1 << tcols):
+                        # the plain stage of span 2^(low+jb+1) at position (jj << low) | col
+                        lanes[(((1 << jb) - 1 + jj) << tcols) | c] = (
+                            (1 << (low + jb)) - 1 + ((jj << low) | (t << tcols) | c))
+            assert sorted(lanes) == list(range(entries))
+            assert all(_twiddle_lane(e, low, tcols, t) == lane for e, lane in lanes.items())
 
 
 def test_block_rejects_bad_passes():
@@ -167,3 +240,12 @@ def test_block_rejects_bad_passes():
         ntt.ntt_block(x.to(torch.int64), dom.tw_fwd, 0, 4, 0, False)
     with pytest.raises(ValueError):
         ntt.block_passes(8, tile_log=0)
+    keys, h = dom.tw_fwd, torch.zeros((8, 16), dtype=torch.int32)
+    for bad in (dict(inverse=False, scale=keys), dict(inverse=True, scale=keys, low=2),
+                dict(inverse=True, scale=keys[:, :3]), dict(inverse=True, h_out=h, scale=keys[:, :1]),
+                dict(inverse=False, h_out=h), dict(inverse=False, h_out=h[:, :8], scale=keys[:, :1])):
+        low = bad.pop("low", 0)
+        with pytest.raises(ValueError):
+            ntt.ntt_block(x, dom.stw_fwd, low, 4 - low, 0, **bad)
+    with pytest.raises(ValueError):  # h needs the batch of three polynomials
+        ntt.ntt_block(x[:2].contiguous(), dom.stw_fwd, 0, 4, 0, False, keys[:, :1], h_out=h)
