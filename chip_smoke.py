@@ -4,19 +4,22 @@
     python3 chip_smoke.py --constraints 2000 --large-constraints 20000   # a rehearsal
     python3 chip_smoke.py --bits-only   # the MSM on a bit-valued witness, nothing else
     python3 chip_smoke.py --r1cs-only   # construct_r1cs, the r1cs_ntt phase, the K5 pair
+    python3 chip_smoke.py --ops-only    # K9-K11, K4 at small windows, the op surface
+    python3 chip_smoke.py --setup-only  # the device setup on K11 and on K1 launches, timed
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
      and power limit, each kernel's registers and spills, and the SASS
      instruction census (`cuobjdump -sass`) of the K1, K2 and K5 kernels;
-  2. make the complex-N fixture with the port's device setup (K1, K7) and
-     build the proving-key cache;
+  2. make the complex-N fixture with the port's device setup (K11 for the
+     fixed-base points, K7 for their affine form; a driven path, timed by
+     phase) and build the proving-key cache;
   3. hold every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs at the main path's shapes plus edge values
      (0, 1, p-1; the identity, P+P, P+(-P)); time both with CUDA events
      (K1-K4, K7 at complex-N shapes, K4 at every lane of both MSMs; K5, K6
-     and K4 once more at the large circuit's shapes in phase 6; K8 at the
-     probe's);
+     and K4 once more at the large circuit's shapes in phase 7; K9-K11 in
+     phase 6; K8 at the probe's);
   4. the coset evaluation (K2 rows, then K5's passes with the keys and h
      fused in) against its plain version word for word, on the fixture's
      and on a bit-valued witness, timed, its launches counted (K2 once, K5
@@ -28,24 +31,34 @@ Phases, each fatal on failure (nonzero exit, no result line):
   5. complex-N again with the JAX package's own MSM plan, G1 (13, 1) and
      G2 (13, 4) precomputed bases: the deterministic proof equals phase 4's
      byte for byte; the G1 and G2 MSMs timed at c = 12..16 and a few f;
-  6. complex-M, the large circuit (default 1 600 000 constraints, domain
-     2^21): device setup, cold cache; K5's passes and tile sweep, K2 (with
-     fold levels on skewed rows), K1 timed, and the coset evaluation of
-     phase 4 at this size, with the fused passes timed beside the bare
-     passes and K1 launches they replace; K4 against its plain versions on a
-     bit-valued witness (A, B1, C, B2 scalars in {0, 1}, uniform h) and
-     timed beside uniform scalars; K4's constants swept; first prove, three
-     warm proves, a profiled prove (profiled again if a kernel the port
-     launched left no device record), proves with the bit-valued witness;
-     four deterministic proofs (default in-core route with K5, NTT forced
-     to K3, MSM forced into slices of 2^21 lanes with K6, G2 bases
-     precomputed with factor 2) that must be byte-identical; a
+  6. the op surface (ops/vec_ops.py, ops/ntt.py `ntt`, ops/msm.py
+     `msm_g1`/`msm_g2`, config.py, runtime.py): K9 (field_pow) over 2^24 Fr
+     lanes, K10 (field_reduce) over 2^24 and on odd, single, batched and
+     all-(p-1) rows, K11 (fixed_base_msm) at the setup's 2^18-lane chunk
+     (G1 and G2), K4 at c = 8, 10, 12, 16, each against its plain version
+     word for word and timed; then the op surface driven at users' sizes
+     (vec-ops over 2^24, ntt at 2^22 and (3, 2^21) in every ordering with
+     and without a coset, msm_g1 over 2^22 and msm_g2 over 2^20 lanes at
+     the default window, MSMConfig(c=13) and precompute factor 2), each
+     result held against a composition computed another way;
+  7. complex-M, the large circuit (default 1 600 000 constraints, domain
+     2^21): device setup (timed by phase), cold cache; K5's passes and tile
+     sweep, K2 (with fold levels on skewed rows), K1 timed, and the coset
+     evaluation of phase 4 at this size, with the fused passes timed beside
+     the bare passes and K1 launches they replace; K4 against its plain
+     versions on a bit-valued witness (A, B1, C, B2 scalars in {0, 1},
+     uniform h) and timed beside uniform scalars; K4's constants swept;
+     first prove, three warm proves, a profiled prove (profiled again if a
+     kernel the port launched left no device record), proves with the
+     bit-valued witness; four deterministic proofs (default in-core route
+     with K5, NTT forced to K3, MSM forced into slices of 2^21 lanes with
+     K6, G2 bases precomputed with factor 2) that must be byte-identical; a
      deterministic and a randomized proof verify; the MSMs at c = 12..16;
-  7. the probe entry point (K8), every (op, W);
-  8. complex(40, 50): the port's device setup gives the host oracle's zkey
+  8. the probe entry point (K8), every (op, W);
+  9. complex(40, 50): the port's device setup gives the host oracle's zkey
      byte for byte, and its deterministic proof (through the CLI worker on
      the card) equals the oracle's byte for byte;
-  9. print the kernels line, then the result line.
+  10. print the kernels line, then the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -179,19 +192,22 @@ def check_field_vec(rep, rng, n, dev):
         a = random_field(rng, spec.modulus, (3, n), dev)
         b = random_field(rng, spec.modulus, (3, n), dev)
         b[..., 0:3] = a[..., 2:5]
-        for op in (lb.OP_MUL, lb.OP_ADD, lb.OP_SUB, lb.OP_NEG):
+        for op in (lb.OP_MUL, lb.OP_ADD, lb.OP_SUB, lb.OP_NEG, lb.OP_RSUB):
             bb = None if op == lb.OP_NEG else b
             got = lb.field_op(op, a, bb, spec)
             want = lb.field_op_plain(op, a, bb, spec)
             err = max_word_err(got, want)
             ok &= err == 0
             log(f"  field_vec {spec.name} op{op} (3, 8, {n}): max word err {err}")
-        # broadcast forms used by the pipeline: a table over the batch, a constant
+        # broadcast forms used by the pipeline and the op surface: a table over
+        # the batch, a constant (the scalar ops, b - a for scalar_sub)
         for bshape in ((8, n), (8, 1)):
             bb = b[0] if bshape == (8, n) else b[0, :, :1].contiguous()
-            err = max_word_err(lb.mont_mul(a, bb, spec), lb.field_op_plain(lb.OP_MUL, a, bb, spec))
-            ok &= err == 0
-            log(f"  field_vec {spec.name} mul, b {bshape}: max word err {err}")
+            for op in (lb.OP_MUL, lb.OP_ADD, lb.OP_RSUB):
+                err = max_word_err(lb.field_op(op, a, bb, spec),
+                                   lb.field_op_plain(op, a, bb, spec))
+                ok &= err == 0
+                log(f"  field_vec {spec.name} op{op}, b {bshape}: max word err {err}")
     a = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
     b = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
     ms = cuda_time(lambda: lb.mont_mul(a, b, lb.FR_SPEC), 20)
@@ -403,7 +419,7 @@ def ptxas_usage() -> dict:
     return out
 
 
-def sass_census(sources=("ntt_block.cu", "r1cs.cu", "field_vec.cu")) -> dict:
+def sass_census(sources=("ntt_block.cu", "r1cs.cu", "field_vec.cu", "field_pow.cu")) -> dict:
     """Static instruction counts of each kernel of the given sources, from
     `cuobjdump -sass` of the build's object files: the total, each opcode
     without its modifiers, and the IMAD forms apart (IMAD.MOV, .SHL and
@@ -1149,6 +1165,433 @@ def check_probe(rep, rng, dev, depth: int = 4096):
     return ok
 
 
+# ---------------------------------------------------------------- the op surface, K9-K11
+
+def random_scalars(rng, count: int, bits: int = 254):
+    """(count, 8) uint32 words of random integers below 2^bits, with 0, 1
+    and 2^bits - 1 in the first lanes."""
+    w = rng.integers(0, 1 << 32, size=(count, 8), dtype=np.uint64).astype(np.uint32)
+    w[:, 7] &= np.uint32((1 << (bits - 224)) - 1)
+    w[0], w[1], w[2] = 0, 0, 0xFFFFFFFF
+    w[1, 0] = 1
+    w[2, 7] = (1 << (bits - 224)) - 1
+    return w
+
+
+def check_field_pow(rep, rng, dev, n: int = 1 << 24, n_plain: int = 1 << 18):
+    """K9 against its plain version: the Fr and Fq inverses (a^(p-2)) of
+    random values with 0, 1 and p-1 among them, and other exponents (0, 1,
+    2, 5, 2^256 - 1, a random one) on fewer lanes; the kernel runs over n
+    Fr lanes (n_plain for Fq), the plain version over the first n_plain.
+    Timed: the Fr inverse over n lanes."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    ok, worst = True, 0.0
+    plain_ms = None
+    for spec in (lb.FR_SPEC, lb.FQ_SPEC):
+        a = random_field(rng, spec.modulus, (n if spec is lb.FR_SPEC else n_plain,), dev)
+        got = lb.mont_inv(a, spec)
+        want, ms_p = timed_once(lambda: lb.field_pow_plain(a[:, :n_plain].contiguous(),
+                                                           spec.modulus - 2, spec))
+        err = max_word_err(got[:, :n_plain], want)
+        zero_ok = bool(lb.is_zero(got[:, :1]).all())
+        if spec is lb.FR_SPEC:
+            plain_ms, a_fr = ms_p, a
+        exps = (0, 1, 2, 5, (1 << 256) - 1, int.from_bytes(rng.bytes(32), "little"))
+        sub = a[:, :4096].contiguous()
+        err_e = max(max_word_err(lb.mont_pow_const(sub, e, spec), lb.field_pow_plain(sub, e, spec))
+                    for e in exps)
+        log(f"  field_pow {spec.name} inverse, {a.shape[-1]} lanes (plain on {n_plain}): max word "
+            f"err {err}, inv(0) = 0 {zero_ok}; exponents 0, 1, 2, 5, 2^256-1, random on 4096 "
+            f"lanes: max word err {err_e}")
+        worst = max(worst, err, err_e)
+        ok &= err == 0 and err_e == 0 and zero_ok
+    fr = lb.FR_SPEC
+    ms = cuda_time(lambda: lb.mont_inv(a_fr, fr), 3)
+    e = fr.modulus - 2
+    steps = e.bit_length() + bin(e).count("1")  # squarings and products a lane
+    bms, by = bound(n * 64, n * steps * MULS_PER_MONT)
+    rep.add(kernels.FIELD_POW.name, equal_to_plain=ok, max_abs_err=worst, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            timed=f"Fr inverse (vec_ops.inv), {n} lanes; plain_ms on the first {n_plain} lanes")
+    log(f"  field_pow Fr inverse over {n} lanes: {ms:.3f} ms, bound {bms:.3f} ms ({by}); plain "
+        f"version {plain_ms:.1f} ms on {n_plain} lanes")
+    return ok
+
+
+def check_field_reduce(rep, rng, dev, n: int = 1 << 24):
+    """K10 against its plain version: the sum and the product over one row
+    of n Fr values, an odd row (n - 3), n = 1, a 2-D batch (2, 3, 8, 4097),
+    rows of p - 1 only (the largest carries), and an Fq batch; timed over
+    the row of n."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+
+    fr, fq = lb.FR_SPEC, lb.FQ_SPEC
+    full = random_field(rng, fr.modulus, (n,), dev)
+    top = lb.const(fr.modulus - 1, dev, 5000)
+    cases = [("row of n", full, fr), ("odd row", full[:, 3:].contiguous(), fr),
+             ("n = 1", full[:, :1].contiguous(), fr),
+             ("2-D batch", random_field(rng, fr.modulus, (2, 3, 4097), dev), fr),
+             ("p - 1 only", torch.stack([top, top]), fr),
+             ("Fq batch", random_field(rng, fq.modulus, (3, 70001), dev), fq)]
+    ok, worst, plain = True, 0.0, {}
+    for label, v, spec in cases:
+        for op in (0, 1):
+            got = vo.field_reduce(op, v, spec)
+            want, ms_p = timed_once(lambda: vo.field_reduce_plain(op, v, spec))
+            err = max_word_err(got, want)
+            if label == "row of n":
+                plain[op] = ms_p
+            worst = max(worst, err)
+            ok &= err == 0 and got.shape == v.shape[:-1] + (1,)
+            log(f"  field_reduce {'product' if op else 'sum'} {label} {tuple(v.shape)}: max word "
+                f"err {err}")
+    sum_ms = cuda_time(lambda: vo.field_reduce(0, full, fr), 10)
+    prod_ms = cuda_time(lambda: vo.field_reduce(1, full, fr), 10)
+    b_sum = bound(n * 32 + 32, 0)
+    b_prod = bound(n * 32 + 32, (n - 1) * MULS_PER_MONT)
+    rep.add(kernels.FIELD_REDUCE.name, equal_to_plain=ok, max_abs_err=worst,
+            ms=sum_ms + prod_ms, plain_ms=plain[0] + plain[1], bound_ms=b_sum[0] + b_prod[0],
+            bound_by=b_prod[1],
+            timed=f"Fr sum_reduce + product_reduce over one row of {n}: sum {sum_ms:.4f} ms "
+                  f"(bound {b_sum[0]:.4f}, {b_sum[1]}), product {prod_ms:.4f} ms (bound "
+                  f"{b_prod[0]:.4f}, {b_prod[1]})")
+    log(f"  field_reduce over {n}: sum {sum_ms:.4f} ms (bound {b_sum[0]:.4f}), product "
+        f"{prod_ms:.4f} ms (bound {b_prod[0]:.4f})")
+    return ok
+
+
+def setup_tables(dev):
+    """The device setup's G1 and G2 window tables, (x, y) on the card."""
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
+    from icicle_snark_tpu_torch.setup.trusted_setup import _fixed_bases
+
+    fb1, fb2 = _fixed_bases()
+    return (fb1, fb2), (fs._table_g1(fb1, dev), fs._table_g2(fb2, dev))
+
+
+def check_fixed_base(rep, rng, dev, fbs, tables, lanes: int = 1 << 18):
+    """K11 against its plain version at the device setup's chunk (2^18
+    lanes) for G1 and G2: every projective word equal, on random scalars
+    below r with 0, 1, r - 1 and 2^256 - 1 (every digit 255) among them;
+    the first lanes made affine (K7) against host scalar multiples. Timed
+    beside the plain version and the route the setup took before K11 (the
+    plain scan over K1 launches). The row sums G1 and G2."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.refmath.field import fq_from_mont
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
+
+    ok, worst, row = True, 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "k1_route_ms": 0.0}
+    parts = []
+    for g2 in (False, True):
+        tag = "g2" if g2 else "g1"
+        ops, plain = (jc.G2, jc.G2_PLAIN) if g2 else (jc.G1, jc.G1_PLAIN)
+        table, fb = tables[g2], fbs[g2]
+        words = rng.integers(0, 1 << 32, size=(lanes, 8), dtype=np.uint64).astype(np.uint32)
+        words[:, 7] = rng.integers(0, lb.FR_SPEC.modulus >> 224, size=lanes).astype(np.uint32)
+        for i, v in enumerate((0, 1, lb.FR_SPEC.modulus - 1, (1 << 256) - 1)):
+            words[i] = lb.ints_to_words([v])[0]
+        sc = lb.words_to_limbs(words, dev)
+        got = fs.fixed_base_msm(sc, table, ops)
+        want, plain_ms = timed_once(lambda: fs.fixed_base_msm_plain(sc, table, plain))
+        err = max(max_word_err(a, b) for a, b in zip(got, want))
+        ax, ay = jc.to_affine(ops, tuple(t[..., :6].contiguous() for t in got))
+        host_ok = True
+        for i in range(6):
+            k = int.from_bytes(words[i].astype("<u4").tobytes(), "little")
+            if g2:
+                pt = tuple(tuple(fq_from_mont(lb.limbs_to_ints(t[c][:, i:i + 1])[0])
+                                 for c in range(2)) for t in (ax, ay))
+            else:
+                pt = tuple(fq_from_mont(lb.limbs_to_ints(t[:, i:i + 1])[0]) for t in (ax, ay))
+            host_ok &= pt == _affine_host(fb.mul(k), g2)
+        records = msm.point_records(table)
+        ms = cuda_time(lambda: fs.fixed_base_msm(sc, table, ops, records), 5)
+        k1_ms = cuda_time(lambda: fs.fixed_base_msm_plain(sc, table, ops), 1)
+        digits = fs._digits(sc)
+        madds = int((digits != 0).sum())
+        out_words = 3 * (16 if g2 else 8)
+        bnd = bound(lanes * 32 + lanes * out_words * 4 + records.numel() * 4,
+                    madds * FQ_MULS[tag]["madd"] * MULS_PER_MONT)
+        log(f"  fixed_base_msm {tag}, {lanes} lanes: max word err {err}, affine == host k * G on "
+            f"6 lanes {host_ok}; {ms:.3f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}), plain version "
+            f"{plain_ms:.1f} ms, the K1-launch scan {k1_ms:.1f} ms")
+        worst = max(worst, err)
+        ok &= err == 0 and host_ok
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd[0]),
+                         ("k1_route_ms", k1_ms)):
+            row[key] += val
+        parts.append(f"{tag} {ms:.3f} ms (bound {bnd[0]:.3f}, {bnd[1]}; plain {plain_ms:.1f}; "
+                     f"K1-launch scan {k1_ms:.1f})")
+        del got, want
+        torch.cuda.empty_cache()
+    rep.add(kernels.FIXED_BASE.name, equal_to_plain=ok, max_abs_err=worst, bound_by="operations",
+            timed=f"one setup chunk of {lanes} lanes, G1 + G2: " + "; ".join(parts), **row)
+    return ok
+
+
+def check_k4_windows(rng, dev, lanes: int = 4096, cs=(8, 10, 12, 16)):
+    """K4 (accumulate and reduce) against its plain versions at the op
+    surface's small windows (c = 8 gives 128 buckets and 8 reduce threads a
+    row), for G1 and G2, on full-width scalars below 2^254 with 0, 1 and
+    2^254 - 1 among them and the identity among the points."""
+    import torch
+
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+
+    ok = True
+    for g2 in (False, True):
+        ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
+        _, pts = _edge_msm_inputs(rng, dev, g2)
+        reps = -(-lanes // pts[0].shape[-1])
+        pts = tuple(torch.cat([t] * reps, dim=-1)[..., :lanes].contiguous() for t in pts)
+        rec = msm.point_records(pts)
+        sc = lb.words_to_limbs(random_scalars(rng, lanes), dev)
+        for c in cs:
+            half = 1 << (c - 1)
+            order, negs, ends = msm.sort_windows(sc, [lanes], c)
+            acc_err, red_err, *_ = _msm_against_plain(
+                ops, rec, order, negs, ends, order.shape[0], 1, half, f"c = {c}",
+                "g2" if g2 else "g1", sc, c, time.perf_counter())
+            ok &= acc_err == 0 and red_err == 0
+    return ok
+
+
+def _affine_host(p, g2: bool):
+    from icicle_snark_tpu_torch.refmath import curve as cv
+
+    return cv.g2_to_affine(p) if g2 else cv.g1_to_affine(p)
+
+
+def drive_op_surface(rng, dev, fbs, tables, counts_log, n_vec: int = 1 << 24,
+                     log_ntt: int = 22, n_g1: int = 1 << 22, n_g2: int = 1 << 20) -> tuple:
+    """The op surface as a user calls it (ops/vec_ops.py, ops/ntt.py `ntt`,
+    ops/msm.py `msm_g1`/`msm_g2`, config.py, runtime.py), each result held
+    against a composition computed another way:
+      vec-ops over n_vec Fr values: sub(add(a, b), b) == a, div(a, a) == 1
+      (a != 0; div(0, 0) == 0), product_reduce of a vector and its inverses
+      == 1, from_mont(to_mont(a)) == a, scalar_sub(s, v) == neg(sub(v, s)),
+      the sum of a vector and its negation == 0, mixed_mul == two products,
+      the batched cfg ops == the plain ones;
+      ntt at 2^log_ntt (batch 1) and at (3, 2^(log_ntt - 1)), every ordering
+      with and without a coset generator: forward then inverse gives the
+      input back, NR == NN gathered by bitrev, the coset NTT == the powers
+      g^i (K1) times ntt_natural; columns_batch == the row batch transposed;
+      msm_g1 over n_g1 lanes and msm_g2 over n_g2, on points k_i * G made by
+      K11 and K7 and random scalars below 2^254, with the default window,
+      MSMConfig(c=13) and precompute_factor 2: each == the grouped path's
+      MSM over the same lanes at another window, and == (sum s_i k_i) * G
+      on the host.
+    The counts are set to 0 after the inputs are made and read at the end:
+    the op surface's launches. Returns (ok, readings)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels, runtime
+    from icicle_snark_tpu_torch.config import MSMConfig, NTTConfig, Ordering, VecOpsConfig
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
+
+    fr = lb.FR_SPEC
+    checks, ms = {}, {}
+    runtime.set_device("CUDA")
+    runtime.warmup()
+    props = runtime.device_properties()
+    # inputs: vectors; MSM points k_i * G (K11 then K7) with their k_i
+    a = random_field(rng, fr.modulus, (n_vec,), dev)
+    b = random_field(rng, fr.modulus, (n_vec,), dev)
+    b[:, :3] = lb.const(fr.r_mod, dev, 3)  # b nonzero where a holds 0, 1, p - 1
+    ext = random_field(rng, lb.FQ_SPEC.modulus, (2, n_vec // 4), dev)
+    base = random_field(rng, lb.FQ_SPEC.modulus, (n_vec // 4,), dev)
+    xs = random_field(rng, fr.modulus, (1 << log_ntt,), dev)
+    xb = random_field(rng, fr.modulus, (3, 1 << (log_ntt - 1)), dev)
+    pts, ks = {}, {}
+    for g2, lanes in ((False, n_g1), (True, n_g2)):
+        words = rng.integers(0, 1 << 32, size=(lanes, 8), dtype=np.uint64).astype(np.uint32)
+        words[:, 7] = rng.integers(0, fr.modulus >> 224, size=lanes).astype(np.uint32)
+        words[0] = 0  # the identity among the points
+        kt = lb.words_to_limbs(words, dev)
+        ops = jc.G2 if g2 else jc.G1
+        pts[g2] = jc.to_affine(ops, fs.fixed_base_msm(kt, tables[g2], ops))
+        ks[g2] = lb.limbs_to_ints(kt)
+    scal = {g2: lb.words_to_limbs(random_scalars(rng, lanes), dev)
+            for g2, lanes in ((False, n_g1), (True, n_g2))}
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+
+    # ---- vec-ops
+    one = lb.one_mont(fr, dev)
+    s = vo.sum_reduce(b[:, 5:6].contiguous())  # a scalar (8,)
+    checks["sub(add(a, b), b) == a"] = torch.equal(vo.sub(vo.add(a, b), b), a)
+    q = vo.div(a, a)
+    checks["div(a, a) == 1, div(0, 0) == 0"] = bool(
+        torch.equal(q[:, 1:], one.expand(8, n_vec - 1)) and lb.is_zero(q[:, :1]).all())
+    nz = a[:, 1:].contiguous()
+    both = torch.cat([nz, vo.inv(nz)], dim=-1)
+    checks["product_reduce(v, inv(v)) == 1"] = torch.equal(vo.product_reduce(both), one[:, 0])
+    checks["from_mont(to_mont(a)) == a"] = torch.equal(vo.from_mont(vo.to_mont(a)), a)
+    checks["scalar_sub(s, v) == neg(sub(v, s))"] = torch.equal(
+        vo.scalar_sub(s, a), vo.neg(vo.sub(a, s.reshape(8, 1))))
+    checks["scalar_add(s, v) - s == v, scalar_mul(1, v) == v"] = bool(
+        torch.equal(vo.sub(vo.scalar_add(s, a), s.reshape(8, 1)), a)
+        and torch.equal(vo.scalar_mul(one, a), a))
+    checks["sum_reduce(v, neg(v)) == 0"] = bool(
+        lb.is_zero(vo.sum_reduce(torch.cat([a, vo.neg(a)], dim=-1)).reshape(8, 1)).all())
+    acc = a.clone()
+    vo.accumulate(acc, b)
+    checks["accumulate == add"] = torch.equal(acc, vo.add(a, b))
+    mm = vo.mixed_mul(ext, base, lb.FQ_SPEC)
+    checks["mixed_mul == two products"] = bool(
+        torch.equal(mm[0], vo.mul(ext[0], base, lb.FQ_SPEC))
+        and torch.equal(mm[1], vo.mul(ext[1], base, lb.FQ_SPEC)))
+    cfg = VecOpsConfig(batch_size=4)
+    checks["add/sub/mul_cfg == add/sub/mul"] = bool(
+        torch.equal(vo.mul_cfg(a, b, cfg), vo.mul(a, b))
+        and torch.equal(vo.add_cfg(a, b, cfg), vo.add(a, b))
+        and torch.equal(vo.sub_cfg(a, b, cfg), vo.sub(a, b)))
+    for name, fn in (("add", lambda: vo.add(a, b)), ("mul", lambda: vo.mul(a, b)),
+                     ("inv", lambda: vo.inv(a)), ("div", lambda: vo.div(a, b)),
+                     ("scalar_sub", lambda: vo.scalar_sub(s, a)),
+                     ("sum_reduce", lambda: vo.sum_reduce(a)),
+                     ("product_reduce", lambda: vo.product_reduce(a))):
+        ms[f"vec {name} 2^{n_vec.bit_length() - 1}"] = cuda_time(fn, 3)
+
+    # ---- ntt
+    rev_of = {Ordering.NN: Ordering.NN, Ordering.NR: Ordering.RN, Ordering.RN: Ordering.NR,
+              Ordering.RR: Ordering.RR, Ordering.NM: Ordering.MN, Ordering.MN: Ordering.NM}
+    g = int.from_bytes(rng.bytes(32), "little") % fr.modulus
+    for label, x in ((f"2^{log_ntt}", xs), (f"(3, 2^{log_ntt - 1})", xb)):
+        log_n = x.shape[-1].bit_length() - 1
+        dom = ntt_ops.initialize_domain(log_n, dev)
+        nn = {}
+        for coset in (None, g):
+            for o in Ordering:
+                y = ntt_ops.ntt(x, cfg=NTTConfig(ordering=o, coset_gen=coset))
+                back = ntt_ops.ntt(y, inverse=True, cfg=NTTConfig(ordering=rev_of[o],
+                                                                   coset_gen=coset))
+                checks[f"ntt {label} {o.name}{' coset' if coset else ''}: inverse(forward) == "
+                       f"x"] = torch.equal(back, x)
+                nn[(o, coset)] = y
+            checks[f"ntt {label}{' coset' if coset else ''}: NR == NN[bitrev]"] = torch.equal(
+                nn[(Ordering.NR, coset)], nn[(Ordering.NN, coset)][..., dom.bitrev])
+        want = ntt_ops.ntt_natural(
+            lb.mont_mul(x, ntt_ops.powers_mont(g, log_n, dev), fr).reshape(-1, 8, 1 << log_n), dom)
+        checks[f"ntt {label} coset == powers x ntt_natural"] = torch.equal(
+            nn[(Ordering.NN, g)].reshape(want.shape), want)
+        ms[f"ntt {label} NN"] = cuda_time(lambda: ntt_ops.ntt(x), 3)
+        ms[f"ntt {label} NN coset"] = cuda_time(
+            lambda: ntt_ops.ntt(x, cfg=NTTConfig(coset_gen=g)), 3)
+    cols = xb.permute(2, 1, 0).contiguous()  # (n, 8, 3)
+    yc = ntt_ops.ntt(cols, cfg=NTTConfig(columns_batch=True))
+    checks["ntt columns_batch == row batch"] = torch.equal(
+        yc.permute(2, 1, 0), ntt_ops.ntt(xb))
+    ntt_inplace_x = xs.clone()
+    ntt_ops.ntt_inplace(ntt_inplace_x)
+    checks["ntt_inplace == ntt"] = torch.equal(ntt_inplace_x, ntt_ops.ntt(xs))
+
+    # ---- msm
+    msm_res = {}
+    for g2, fn in ((False, msm.msm_g1), (True, msm.msm_g2)):
+        tag = "g2" if g2 else "g1"
+        ops = jc.G2 if g2 else jc.G1
+        sc, p = scal[g2], pts[g2]
+        lanes = sc.shape[-1]
+        t1 = time.perf_counter()
+        default = fn(sc, p)
+        ms[f"msm_{tag} {lanes} default c (host clock, s)"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        c13 = fn(sc, p, cfg=MSMConfig(c=13))
+        ms[f"msm_{tag} {lanes} MSMConfig(c=13) (host clock, s)"] = time.perf_counter() - t1
+        c_pre = msm.choose_c(min(lanes, msm.MSM_MAX_LANES // 2), factor=2)
+        t1 = time.perf_counter()
+        pre = msm.precompute_bases(p, ops, c_pre, 2)
+        torch.cuda.synchronize()
+        ms[f"msm_{tag} precompute_bases f 2 c {c_pre} (host clock, s)"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        f2 = fn(sc, pre, cfg=MSMConfig(c=c_pre, precompute_factor=2))
+        ms[f"msm_{tag} {lanes} precompute_factor 2 (host clock, s)"] = time.perf_counter() - t1
+        # the grouped path at another window over the same lanes
+        c_alt = 12
+        ws = msm.msm_window_sums(sc, [lanes], msm.point_records(p), c_alt)
+        to_host = msm.window_points_to_host_g2 if g2 else msm.window_points_to_host_g1
+        grouped = msm.horner_combine(to_host(ws, 0), c_alt, g2=g2)
+        host_k = sum(x * k for x, k in zip(lb.limbs_to_ints(sc), ks[g2])) % fr.modulus
+        want = fbs[g2].mul(host_k)
+        aff = [_affine_host(v, g2) for v in (default, c13, f2, grouped, want)]
+        checks[f"msm_{tag} default == c 13 == precompute f 2 == grouped c {c_alt} == host"] = \
+            all(v == aff[-1] for v in aff)
+        msm_res[tag] = {"lanes": lanes, "c_default": msm.choose_c(
+            min(lanes, msm.MSM_MAX_LANES // (2 if g2 else 1))), "c_pre": c_pre}
+        del pre, ws
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts_log["op surface"] = kernels.counts()
+    ntt_ops.release_domain()  # the domains this phase built stay off the later peaks
+    elapsed = time.perf_counter() - t0
+    ok = all(checks.values())
+    for name, val in checks.items():
+        if not val:
+            log(f"  op surface FAILED: {name}")
+    log(f"[ops] {sum(checks.values())} of {len(checks)} checks hold; device "
+        f"{runtime.get_device()}, {runtime.available_devices()}, {props}; {elapsed:.1f} s; "
+        f"launches " + json.dumps(counts_log["op surface"]))
+    log("[ops] times (ms, CUDA events, unless named): " + json.dumps(ms))
+    return ok, {"checks": checks, "ms": ms, "msm": msm_res, "s": elapsed,
+                "launches": counts_log["op surface"]}
+
+
+def op_surface_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> dict:
+    """Phase 6: K9, K10, K11 and K4 at small windows against their plain
+    versions, then the op surface driven (drive_op_surface). `small` cuts
+    every size for a rehearsal."""
+    import torch
+
+    t0 = time.perf_counter()
+    fbs, tables = setup_tables(dev)
+    log(f"  setup window tables built on the host in {time.perf_counter() - t0:.1f} s")
+    sizes = (dict(n_vec=1 << 12, log_ntt=6, n_g1=1 << 10, n_g2=1 << 9) if small else {})
+    for name, fn in (
+            ("field_pow", lambda: check_field_pow(rep, rng, dev, *((1 << 12, 1 << 10) if small
+                                                                  else ()))),
+            ("field_reduce", lambda: check_field_reduce(rep, rng, dev, *((1 << 12,) if small
+                                                                        else ()))),
+            ("fixed_base_msm", lambda: check_fixed_base(rep, rng, dev, fbs, tables,
+                                                        *((1 << 10,) if small else ()))),
+            ("msm at c = 8, 10, 12, 16", lambda: check_k4_windows(rng, dev,
+                                                                  *((256,) if small else ())))):
+        t1 = time.perf_counter()
+        if not fn():
+            failures.append(f"kernel {name} differs from its plain version")
+        torch.cuda.empty_cache()
+        log(f"[kernels] {name} checked in {time.perf_counter() - t1:.1f} s")
+    ok, readings = drive_op_surface(rng, dev, fbs, tables, counts_log, **sizes)
+    if not ok:
+        failures.append("an op-surface result differs from its composition")
+    for k in ("field_vec", "field_pow", "field_reduce", "ntt_block", "msm_accumulate",
+              "msm_reduce", "point_dbl_k", "point_to_affine"):
+        if not readings["launches"].get(k):
+            failures.append(f"the op surface did not launch {k}")
+    torch.cuda.empty_cache()
+    readings["phase_s"] = time.perf_counter() - t0
+    return readings
+
+
 # ---------------------------------------------------------------- profile
 
 # the device functions of each kernel of kernels.ALL
@@ -1158,7 +1601,8 @@ KERNEL_FUNCTIONS = {
     "msm_reduce": ("msm_reduce_segments_kernel", "msm_reduce_rows_kernel"),
     "ntt_block": ("ntt_block_kernel",), "point_add": ("point_add_kernel",),
     "point_dbl_k": ("point_dbl_k_kernel",), "point_to_affine": ("point_to_affine_kernel",),
-    "probe_chain": ("probe_chain_kernel",),
+    "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
+    "field_reduce": ("field_reduce_kernel",), "fixed_base_msm": ("fixed_base_kernel",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -1189,7 +1633,10 @@ def profile_prove(paths, cm) -> dict:
 
 # ---------------------------------------------------------------- fixtures
 
-def make_fixture(directory: str, n_constraints: int, device):
+def make_fixture(directory: str, n_constraints: int, device, timer=None):
+    """The complex-N fixture (zkey by the port's device setup, vk,
+    witness), made unless the directory holds it; `timer` (a
+    pipeline.PhaseTimer) takes the setup's phases."""
     from icicle_snark_tpu_torch.io.wtns import write_wtns
     from icicle_snark_tpu_torch.setup.fast_setup import groth16_setup_device
     from icicle_snark_tpu_torch.setup.r1cs import complex_circuit, complex_circuit_witness
@@ -1201,9 +1648,73 @@ def make_fixture(directory: str, n_constraints: int, device):
     r1cs = complex_circuit(n_constraints, n_constraints)
     if not (os.path.exists(paths["zkey"]) and os.path.exists(paths["vk"])
             and os.path.exists(paths["wtns"])):
-        groth16_setup_device(r1cs, paths["zkey"], paths["vk"], device=device)
+        # no timer argument unless asked: --bits-only and --r1cs-only run in earlier trees
+        groth16_setup_device(r1cs, paths["zkey"], paths["vk"], device=device,
+                             **({} if timer is None else {"timer": timer}))
         write_wtns(paths["wtns"], complex_circuit_witness(r1cs, a=7))
     return r1cs, paths
+
+
+def drive_setup(tag, directory, n_constraints, dev, counts_log, failures) -> dict:
+    """make_fixture as a driven path: the device setup's phases (s) and
+    launches (K11 for the fixed-base points, K7 for their affine form, K1
+    never). When the directory holds the fixture already nothing runs."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    timer = pipeline.PhaseTimer(dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    _, paths = make_fixture(directory, n_constraints, dev, timer)
+    secs = time.perf_counter() - t0
+    if timer.phases:
+        counts_log[f"setup {tag}"] = kernels.counts()
+        if counts_log[f"setup {tag}"]["fixed_base_msm"] == 0:
+            failures.append(f"the setup of {tag} did not launch fixed_base_msm")
+        if counts_log[f"setup {tag}"]["field_vec"]:
+            failures.append(f"the setup of {tag} launched field_vec")
+    log(f"[setup] {tag} fixture in {secs:.1f} s, phases "
+        + json.dumps({k: round(v, 3) for k, v in timer.phases.items()}) + ", launches "
+        + json.dumps(counts_log.get(f"setup {tag}")))
+    return {"paths": paths, "s": secs, "phases": timer.phases}
+
+
+def setup_routes(args, dev) -> int:
+    """--setup-only: the device setup at complex-N and complex-M timed by
+    phase on both fixed-base routes, K11 and the plain scan over K1
+    launches (the route before K11), in the order K1, K11 at N and K11, K1
+    at M; the two routes' zkeys must be byte-identical."""
+    from icicle_snark_tpu_torch.prover import pipeline
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
+    from icicle_snark_tpu_torch.setup.r1cs import complex_circuit
+
+    def k1_route(sc, table, ops, records=None):
+        return fs.fixed_base_msm_plain(sc, table, ops)
+
+    out, ok = {}, True
+    for n, order in ((args.constraints, ("k1", "k11")), (args.large_constraints, ("k11", "k1"))):
+        r1cs = complex_circuit(n, n)
+        zkeys = {}
+        for route in order:
+            d = os.path.join(args.fixture_dir, f"setup_{route}_{n}")
+            os.makedirs(d, exist_ok=True)
+            zkeys[route] = os.path.join(d, "circuit_final.zkey")
+            timer = pipeline.PhaseTimer(dev)
+            t0 = time.perf_counter()
+            with patched(*([(fs, "fixed_base_msm", k1_route)] if route == "k1" else [])):
+                fs.groth16_setup_device(r1cs, zkeys[route], os.path.join(d, "vk.json"),
+                                        device=dev, timer=timer)
+            secs = time.perf_counter() - t0
+            out[f"complex-{n} {route}"] = {"s": secs, "phases": timer.phases}
+            log(f"[setup] complex-{n}, fixed base on {route}: {secs:.2f} s, phases "
+                + json.dumps({k: round(v, 3) for k, v in timer.phases.items()}))
+        same = filecmp.cmp(zkeys["k1"], zkeys["k11"], shallow=False)
+        ok &= same
+        log(f"[setup] complex-{n}: the two routes' zkeys are byte-identical: {same}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_setup_routes.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    return 0 if ok else 1
 
 
 def _prove_bytes(api, paths, cm, **kw):
@@ -1341,6 +1852,12 @@ def main() -> int:
     ap.add_argument("--r1cs-only", action="store_true",
                     help="build, time construct_r1cs and the r1cs_ntt phase at complex-N and "
                          "complex-M and stop (uses only entry points every slice has had)")
+    ap.add_argument("--ops-only", action="store_true",
+                    help="build, check K9-K11 and K4 at small windows against their plain "
+                         "versions, drive the op surface, and stop")
+    ap.add_argument("--setup-only", action="store_true",
+                    help="build, time the device setup at complex-N and complex-M on K11 and on "
+                         "the plain scan over K1 launches, and stop")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -1377,13 +1894,32 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
+    if args.setup_only:
+        return setup_routes(args, dev)
+    if args.ops_only:
+        for name, u in sorted(ptxas_usage().items()):
+            log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
+                f"{u.get('stack')} B, spill stores {u.get('spill_stores')} B, loads "
+                f"{u.get('spill_loads')} B")
+        rep = Report()
+        warm_card(dev)
+        ops = op_surface_phase(rep, rng, dev, path_counts, failures)
+        log("[ops] kernel rows: " + json.dumps(rep.rows))
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_ops.json"), "w") as fh:
+            json.dump({"card": card, "rows": rep.rows, "op_surface": ops}, fh, indent=1)
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
 
     # ---- 2. fixture + cold cache
     n = args.constraints
-    fx_dir = os.path.join(args.fixture_dir, f"torch_complex_{n}")
-    t0 = time.perf_counter()
-    _, paths = make_fixture(fx_dir, n, dev)
-    log(f"[setup] complex-{n} fixture in {time.perf_counter() - t0:.1f} s")
+    fx_small = os.path.join(args.fixture_dir, f"torch_complex_{n}")
+    if args.bits_only or args.r1cs_only:
+        _, paths = make_fixture(fx_small, n, dev)
+    else:
+        setup_small = drive_setup(f"complex-{n}", fx_small, n, dev, path_counts, failures)
+        paths = setup_small["paths"]
     cm = api.CacheManager("cuda")
     t0 = time.perf_counter()
     cache = cm.get(paths["zkey"])
@@ -1410,7 +1946,8 @@ def main() -> int:
     sass = sass_census()
 
     # ---- 3. kernels against their plain versions (K5 and K6 follow in
-    # phase 6, at the large circuit's shapes, with K4 once more)
+    # phase 7, at the large circuit's shapes, with K4 once more; K9-K11 in
+    # phase 6)
     rep = Report()
     warm_card(dev)
     t0 = time.perf_counter()
@@ -1470,15 +2007,17 @@ def main() -> int:
     plan_ms = time_msm_plans(cache, paths, dev, g2_plans=c_sweep + ((None, 2), (13, 4)),
                              g1_plans=c_sweep + ((None, 2),))
     sweep = ntt_threshold_sweep(dev)
-
-    # ---- 6. the large circuit
-    m = args.large_constraints
     del cm, cache
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    _, big = make_fixture(os.path.join(args.fixture_dir, f"torch_complex_{m}"), m, dev)
-    big_setup_s = time.perf_counter() - t0
-    log(f"[large] complex-{m} fixture in {big_setup_s:.1f} s")
+
+    # ---- 6. the op surface and K9-K11
+    ops_readings = op_surface_phase(rep, rng, dev, path_counts, failures)
+
+    # ---- 7. the large circuit
+    m = args.large_constraints
+    setup_big = drive_setup(f"complex-{m}", os.path.join(args.fixture_dir, f"torch_complex_{m}"),
+                            m, dev, path_counts, failures)
+    big, big_setup_s = setup_big["paths"], setup_big["s"]
     cm_big = api.CacheManager("cuda")
     t0 = time.perf_counter()
     cache_big = cm_big.get(big["zkey"])
@@ -1581,7 +2120,7 @@ def main() -> int:
     forced("G2 bases precomputed, f = 2", cm_f2)
     del cm_f2
 
-    # ---- 7. the probe entry point
+    # ---- 8. the probe entry point
     kernels.reset_counts()
     probe_rows = throughput_probe.measure()
     path_counts["throughput probe"] = kernels.counts()
@@ -1592,7 +2131,7 @@ def main() -> int:
     log("[probe] multiply rate: " + json.dumps(mul_rate) + f"; the bounds assume "
         f"{INT_MULS_PER_S / 1e12:.2f} T multiplies/s")
 
-    # ---- 8. small fixture against the oracle
+    # ---- 9. small fixture against the oracle
     small = os.path.join(OUT_DIR, "smoke_complex_40_50")
     os.makedirs(small, exist_ok=True)
     r1cs = complex_circuit(40, 50)
@@ -1621,7 +2160,7 @@ def main() -> int:
     if not same_proof or "OK!" not in cli.stdout or cli.returncode:
         failures.append("small deterministic proof differs from the oracle's")
 
-    # ---- 9. report: a kernel's launches are those of the first driven path
+    # ---- 10. report: a kernel's launches are those of the first driven path
     # that ran it (each path was driven with the counts set to 0 before it)
     rows = []
     for k in kernels.ALL:
@@ -1645,12 +2184,15 @@ def main() -> int:
         if row.get("equal_to_plain") is None:
             failures.append(f"kernel {k.name} was not held against its plain version")
     summary = {
-        "card": card, "constraints": n, "cold_cache_s": cold_cache_s, "first_prove_s": first_s,
+        "card": card, "constraints": n, "setup_s": setup_small["s"],
+        "setup_phases": setup_small["phases"], "op_surface": ops_readings,
+        "cold_cache_s": cold_cache_s, "first_prove_s": first_s,
         "warm_prove_s": warm, "warm_phases": phases_small, "launches": launches, "profile": prof,
         "bits_prove": bits_small, "coset": coset_small, "ptxas": usage, "sass": sass,
         "plan_13_4": {"cold_cache_s": plan_cache_s, "prove_s": plan_s, "same_proof": same_plan},
         "msm_plan_ms": plan_ms, "ntt_threshold_sweep": sweep,
-        "large": {"constraints": m, "setup_s": big_setup_s, "cold_cache_s": big_cold_s,
+        "large": {"constraints": m, "setup_s": big_setup_s, "setup_phases": setup_big["phases"],
+                  "cold_cache_s": big_cold_s,
                   "first_prove_s": big_first_s, "warm_prove_s": big_warm,
                   "warm_phases": phases_big, "coset": coset_big, "fused_passes_ms": fused_ms,
                   "launches": big_launches, "profile": big_prof, "peak_memory_gb": peak_gb,

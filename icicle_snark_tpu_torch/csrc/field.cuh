@@ -26,6 +26,15 @@ struct Fr {
       case 6: return 0xe131a029u; default: return 0x30644e72u;
     }
   }
+  // R mod r: the Montgomery form of 1
+  __device__ static __forceinline__ u32 one(int i) {
+    switch (i) {
+      case 0: return 0x4ffffffbu; case 1: return 0xac96341cu;
+      case 2: return 0x9f60cd29u; case 3: return 0x36fc7695u;
+      case 4: return 0x7879462eu; case 5: return 0x666ea36fu;
+      case 6: return 0x9a07df2fu; default: return 0x0e0a77c1u;
+    }
+  }
 };
 
 struct Fq {

@@ -1,8 +1,10 @@
-// K1: elementwise Fr / Fq vector ops (Montgomery product, add, sub, negate).
+// K1: elementwise Fr / Fq vector ops (Montgomery product, add, sub, negate,
+// and b - a, the scalar-minus-vector of ops/vec_ops.py scalar_sub).
 //
 // Replaces icicle_snark_tpu/fields/limbs.py mont_mul/_mont_mul_core (:375/:394),
 // add_mod (:269), sub_mod (:293), neg_mod (:336) and to_mont (:610), which XLA
-// lowered for the TPU VPU over 16 x 16-bit limbs.
+// lowered for the TPU VPU over 16 x 16-bit limbs, and the elementwise, scalar,
+// mixed and batched ops of icicle_snark_tpu/ops/vec_ops.py (:26-66, :96-133).
 //
 // Layout: a is (nb, 8, n) limb-major int32 (a field vector is nb = 1, an Fq2
 // vector nb = 2, a batch of polynomials nb = B). b broadcasts: it is
@@ -32,6 +34,7 @@ __global__ void field_vec_kernel(int op, u32* __restrict__ out, const u32* __res
     case 0: fmul<F>(r, x, y); break;
     case 1: fadd<F>(r, x, y); break;
     case 2: fsub<F>(r, x, y); break;
+    case 4: fsub<F>(r, y, x); break;
     default: fneg<F>(r, x); break;
   }
   fstore(out + bb * 8 * n, n, i, r);

@@ -1,0 +1,65 @@
+// K11: fixed-base scalar multiplication P_i = k_i * G for G1 and G2, the
+// device trusted setup's point generation.
+//
+// Replaces icicle_snark_tpu/setup/fast_setup.py _fixed_base_msm (:81): there a
+// lax.scan of 32 steps, each a gather from the window table and a full-width
+// jcurve.pmadd graph over all lanes; the port's plain version
+// (setup/fast_setup.py fixed_base_msm_plain) makes every field operation of
+// those 32 mixed adds a K1 launch over a chunk of lanes.
+//
+// Here one thread owns one lane and keeps its projective sum in registers for
+// all 32 windows: the window digit (8 bits of the scalar, low window first,
+// shifted out of the 8 scalar words held in registers) picks the table record
+// T[w][d] = d * 2^(8w) * G, affine and lane-major (ops/msm.py point_records:
+// 64 bytes G1, 128 bytes G2), read as 16-byte vectors through the read-only
+// path; the whole table (32 x 256 records, 512 KB for G1, 1 MB for G2) sits in
+// the 50 MB L2. A zero digit selects the identity (0, 0), which the mixed add
+// passes through, so it is skipped. The mixed add is curve.cuh's p_madd (RCB15
+// algorithm 8), the formula of jcurve.pmadd, so every lane's projective point
+// equals the plain version's word for word; K7 point_to_affine then makes it
+// affine.
+//
+// Bound: operations. Per lane at most 32 mixed adds of 11 (G1) or 39 (G2) Fq
+// products against 32 bytes of scalar in and 96 (G1) or 192 (G2) bytes out.
+// The loop is not unrolled: one inlined G2 mixed add already costs ptxas most
+// of a minute, and the G2 kernel, like K4's, is expected at the 255-register
+// ceiling with spills (the build's -Xptxas -v line says).
+#include "curve.cuh"
+
+template <class E>
+__global__ void fixed_base_kernel(u32* __restrict__ out, const u32* __restrict__ scalars,
+                                  const u32* __restrict__ table, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  u32 s[8];
+  fload(s, scalars, n, i);
+  Pt<E> acc = p_identity<E>();
+#pragma unroll 1
+  for (int w = 0; w < 32; w++) {
+    u32 d = s[0] & 0xffu;
+#pragma unroll
+    for (int k = 0; k < 7; k++) s[k] = (s[k] >> 8) | (s[k + 1] << 24);
+    s[7] >>= 8;
+    if (d == 0) continue;
+    E x, y;
+    rec_load(x, y, table, (long long)w * 256 + d);
+    acc = p_madd(acc, x, y);
+  }
+  p_store(out, n, i, acc);
+}
+
+// out: (3, C, 8, n); scalars: (8, n); table: (32 * 256, 16) G1 or (32 * 256, 32) G2
+extern "C" int snark_fixed_base_msm(int g2, void* out, const void* scalars, const void* table,
+                                    long long n, void* stream) {
+  if (n == 0) return 0;
+  int threads = 128;
+  long long blocks = (n + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g2)
+    fixed_base_kernel<E2><<<blocks, threads, 0, s>>>((u32*)out, (const u32*)scalars,
+                                                     (const u32*)table, n);
+  else
+    fixed_base_kernel<E1><<<blocks, threads, 0, s>>>((u32*)out, (const u32*)scalars,
+                                                     (const u32*)table, n);
+  return (int)cudaGetLastError();
+}

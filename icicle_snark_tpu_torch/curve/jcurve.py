@@ -6,8 +6,8 @@ algorithms 7/8/9), the same as icicle_snark_tpu/curve/jcurve.py and as the
 per-thread versions in csrc/curve.cuh that the MSM kernel (K4) runs. Here
 every field operation is one K1 launch over a whole batch of points (for
 CUDA tensors), with independent products batched into one launch
-(`mul_many`). The trusted-setup generator runs its fixed-base scan on
-these; K4's plain version runs them with `plain=True` ops. `pdbl_k` (k
+(`mul_many`). The plain versions of K4 and of the setup's fixed-base
+scan (K11) run them with `plain=True` ops. `pdbl_k` (k
 doublings) and `to_affine` launch `csrc/precompute.cu` for CUDA tensors
 and run `pdbl_k_plain` / `to_affine_plain` for CPU tensors.
 

@@ -9,15 +9,18 @@ coefficients and points upload with only a transpose of their (n, 8)
 words. (The JAX package's layout is (16, n) 16-bit limbs; the tests
 convert through `from_jax_limbs`/`to_jax_limbs`.)
 
-`mont_mul`, `add_mod`, `sub_mod` and `neg_mod` launch `csrc/field_vec.cu`
-for CUDA tensors and run the plain version `field_op_plain` for CPU
-tensors only. The plain version works on 16-bit limbs held in int64
+`mont_mul`, `add_mod`, `sub_mod`, `rsub_mod` and `neg_mod` launch
+`csrc/field_vec.cu` (K1) for CUDA tensors and run the plain version
+`field_op_plain` for CPU tensors only; `mont_pow_const` (with `mont_inv`
+and `batch_inv`) launches `csrc/field_pow.cu` (K9), its plain version
+`field_pow_plain`. The plain version works on 16-bit limbs held in int64
 (torch on the CPU has no uint32 add or shift), and gives the kernel's
 canonical results exactly.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,7 +32,7 @@ from ..refmath.field import Q as _Q, R_MOD as _R
 NLIMB = 8
 MASK16 = 0xFFFF
 
-OP_MUL, OP_ADD, OP_SUB, OP_NEG = 0, 1, 2, 3
+OP_MUL, OP_ADD, OP_SUB, OP_NEG, OP_RSUB = 0, 1, 2, 3, 4  # OP_RSUB: b - a
 
 
 @dataclass(frozen=True)
@@ -220,6 +223,8 @@ def field_op_plain(op: int, a: torch.Tensor, b: torch.Tensor | None,
         r = _add16(a16, b16, spec)
     elif op == OP_SUB:
         r = _sub16(a16, b16, spec)
+    elif op == OP_RSUB:
+        r = _sub16(b16, a16, spec)
     else:
         raise ValueError(f"unknown field op {op}")
     return _from16(r)
@@ -271,6 +276,11 @@ def sub_mod(a, b, spec: FieldSpec):
     return field_op(OP_SUB, a, b, spec)
 
 
+def rsub_mod(a, b, spec: FieldSpec):
+    """b - a mod p (b broadcast as in field_op: a constant minus a vector)."""
+    return field_op(OP_RSUB, a, b, spec)
+
+
 def neg_mod(a, spec: FieldSpec):
     """-a mod p; 0 stays 0."""
     return field_op(OP_NEG, a, None, spec)
@@ -279,3 +289,62 @@ def neg_mod(a, spec: FieldSpec):
 def to_mont(a, spec: FieldSpec):
     """Standard form -> Montgomery form: a * R mod p."""
     return mont_mul(a, const(spec.r2, a.device), spec)
+
+
+def mont_reduce(a, spec: FieldSpec):
+    """REDC by one factor: a * R^-1 mod p (mont_mul by the standard 1; the
+    from_mont of the op surface)."""
+    return mont_mul(a, const(1, a.device), spec)
+
+
+def one_mont(spec: FieldSpec, device, lanes: int = 1) -> torch.Tensor:
+    """(8, lanes) Montgomery one (R mod p)."""
+    return const(spec.r_mod, device, lanes)
+
+
+# ------------------------------------------------------------ K9 wrapper
+
+def field_pow_plain(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Tensor:
+    """The plain PyTorch version of K9: square-and-multiply from the top bit
+    of the exponent, one plain Montgomery product a step (as
+    icicle_snark_tpu/fields/limbs.py mont_pow_const)."""
+    a16 = _to16(a)
+    acc = _to16(one_mont(spec, a.device, a.shape[-1]).expand(a.shape))
+    for bit in bin(exponent)[2:] if exponent else ():
+        acc = _mont_mul16(acc, acc, spec)
+        if bit == "1":
+            acc = _mont_mul16(acc, a16, spec)
+    return _from16(acc)
+
+
+def mont_pow_const(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Tensor:
+    """a^exponent per element (Montgomery form in and out), 0 <= exponent <
+    2^256; exponent 0 gives the Montgomery one. One K9 launch for a CUDA
+    tensor."""
+    _check(a, "a")
+    if not 0 <= exponent < 1 << 256:
+        raise ValueError("mont_pow_const: the exponent must lie in [0, 2^256)")
+    if a.device.type == "cpu":
+        return field_pow_plain(a, exponent, spec)
+    if a.device.type != "cuda":
+        raise RuntimeError(f"mont_pow_const: unsupported device {a.device}")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    words = (ctypes.c_uint32 * NLIMB)(*(int(w) for w in ints_to_words([exponent])[0]))
+    kernels.FIELD_POW.launch(
+        spec.field_id, out.data_ptr(), a.data_ptr(), ctypes.addressof(words),
+        exponent.bit_length(), a.numel() // (NLIMB * a.shape[-1]), a.shape[-1],
+    )
+    return out
+
+
+def mont_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Modular inverse per element by Fermat, a^(p-2); 0 maps to 0."""
+    return mont_pow_const(a, spec.modulus - 2, spec)
+
+
+def batch_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Inverse of every element along the last axis (the JAX package's
+    Montgomery batch-inversion trick gives the same values, the inverse
+    being unique). Elementwise K9: a zero maps to 0 and poisons nothing."""
+    return mont_inv(a, spec)

@@ -152,6 +152,12 @@ _SIGNATURES = {
     "snark_point_to_affine": [_I, _VP, _VP, _VP, _LL, _VP],
     # op, width, out, x, y, n, depth, stream
     "snark_probe_chain": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
+    # field, out, a, exponent (8 host words), nbits, nb, n, stream
+    "snark_field_pow": [_I, _VP, _VP, _VP, _I, _LL, _LL, _VP],
+    # op, field, out, in, rows, n, blocks, stream
+    "snark_field_reduce": [_I, _I, _VP, _VP, _LL, _LL, _LL, _VP],
+    # g2, out, scalars, table, n, stream
+    "snark_fixed_base_msm": [_I, _VP, _VP, _VP, _LL, _VP],
 }
 
 
@@ -215,8 +221,21 @@ PROBE = Kernel(
     "probe_chain", "snark_probe_chain", "icicle_snark_tpu_torch/csrc/probe.cu",
     "tools/pallas_microbench.py:53; tools/vpu_ceiling_probe.py:105",
 )
+FIELD_POW = Kernel(
+    "field_pow", "snark_field_pow", "icicle_snark_tpu_torch/csrc/field_pow.cu",
+    "icicle_snark_tpu/fields/limbs.py:516",
+)
+FIELD_REDUCE = Kernel(
+    "field_reduce", "snark_field_reduce", "icicle_snark_tpu_torch/csrc/field_reduce.cu",
+    "icicle_snark_tpu/ops/vec_ops.py:68",
+)
+FIXED_BASE = Kernel(
+    "fixed_base_msm", "snark_fixed_base_msm", "icicle_snark_tpu_torch/csrc/fixed_base.cu",
+    "icicle_snark_tpu/setup/fast_setup.py:81",
+)
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
-       NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE)
+       NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
+       FIELD_POW, FIELD_REDUCE, FIXED_BASE)
 
 
 def reset_counts():

@@ -30,6 +30,10 @@ kernels:
     f affine copies 2^(c*wp*m) * P of every base, interleaved at lane
     i*f + m, and the W = ceil(256/c) digit windows merge into
     wp = ceil(W/f) windows over f times the lanes.
+
+The op surface (`msm_g1`, `msm_g1_many`, `msm_g2`, with config.MSMConfig)
+runs the same pipeline on any scalars below 2^254 and returns host points,
+as icicle_snark_tpu/ops/msm.py does.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 
 from .. import kernels
 from ..curve import jcurve as jc
+from ..errors import InvalidArgument
 from ..fields.limbs import NLIMB
 from ..refmath import curve as rcv
 from ..refmath.field import fq_from_mont
@@ -627,3 +632,81 @@ def horner_combine(window_points, c: int, g2: bool = False):
         acc = add(acc, p)
     return acc
 
+
+# ---------------------------------------------------------------- the op surface
+
+def _check_scalars(scalars: torch.Tensor):
+    """Signed digits need scalars below 2^254 (window_digits_signed)."""
+    if scalars.dtype != torch.int32 or scalars.dim() != 2 or scalars.shape[0] != NLIMB:
+        raise InvalidArgument(f"msm: want (8, n) int32 scalars, got {tuple(scalars.shape)}")
+    if bool(((scalars[NLIMB - 1].to(torch.int64) & 0xFFFFFFFF) >> 30).any()):
+        raise InvalidArgument("msm: scalars must lie below 2^254")
+
+
+def _host_points(wsums, groups: int, c: int, g2: bool) -> list:
+    """Window sums (3, coords..., G, W) -> G host projective points (one
+    download, Horner on the host)."""
+    ws = wsums.cpu()
+    to_host = window_points_to_host_g2 if g2 else window_points_to_host_g1
+    return [horner_combine(to_host(ws, g), c, g2=g2) for g in range(groups)]
+
+
+def _msm(groups, c, g2: bool, pre: int, max_lanes: int):
+    for s, _ in groups:
+        _check_scalars(s)
+    sizes = [s.shape[-1] for s, _ in groups]
+    scalars = torch.cat([s for s, _ in groups], dim=-1)
+    records = point_records(tuple(torch.cat([p[i] for _, p in groups], dim=-1) for i in range(2)))
+    if records.shape[0] != scalars.shape[-1] * pre:
+        raise InvalidArgument(f"msm: {records.shape[0]} points for {scalars.shape[-1]} scalars "
+                              f"and precompute factor {pre}")
+    if sum(sizes) * pre > max_lanes:
+        ws = msm_windows_sliced(scalars, sizes, records, c, max_lanes, pre)
+    else:
+        ws = msm_window_sums(scalars, sizes, records, c, pre)
+    return _host_points(ws, len(groups), c, g2)
+
+
+def _cfg_params(cfg, c, k):
+    """Merge an MSMConfig with direct keyword overrides (as
+    icicle_snark_tpu/ops/msm.py _cfg_params). Returns (c, k,
+    precompute_factor); k, the JAX package's prefix-scan chunk, has no
+    counterpart in the port and is returned only for parity."""
+    if cfg is None:
+        return c, k, 1
+    return (c or (cfg.c or None)), (cfg.chunk if k == 32 else k), cfg.precompute_factor
+
+
+def msm_g1_many(groups, c: int | None = None, k: int = 32) -> list:
+    """Batched G1 MSMs through one pipeline: groups = [(scalars (8, n_i)
+    int32, integers below 2^254; (x, y) each (8, n_i) Montgomery affine,
+    (0, 0) the identity), ...]. Returns a list of host projective points
+    (ints, standard form). Past MSM_MAX_LANES lanes the sliced route (K6)
+    runs. Device work: K4 accumulate and reduce."""
+    total = sum(s.shape[-1] for s, _ in groups)
+    c = c or choose_c(min(total, MSM_MAX_LANES), groups=len(groups))
+    return _msm(groups, c, False, 1, MSM_MAX_LANES)
+
+
+def msm_g1(scalars, points_affine, c: int | None = None, k: int = 32, cfg=None):
+    """Single G1 MSM. scalars (8, n) int32 integers below 2^254; points
+    (x, y) each (8, n) Montgomery affine, or (8, n * f) as `precompute_bases`
+    returns them for cfg.precompute_factor f > 1 (made with the same c).
+    Returns a host projective point (ints, standard form)."""
+    c, k, pre = _cfg_params(cfg, c, k)
+    if pre > 1:
+        n = scalars.shape[-1]
+        c = c or choose_c(min(n, MSM_MAX_LANES // pre), factor=pre)
+        return _msm([(scalars, points_affine)], c, False, pre, MSM_MAX_LANES)[0]
+    return msm_g1_many([(scalars, points_affine)], c=c, k=k)[0]
+
+
+def msm_g2(scalars, points_affine, c: int | None = None, k: int = 32, cfg=None):
+    """Single G2 MSM: points (x, y) each (2, 8, n) (or (2, 8, n * f)
+    precomputed). The in-core pipeline takes half the G1 lanes, as in the
+    JAX package; past that the sliced route runs."""
+    c, k, pre = _cfg_params(cfg, c, k)
+    n = scalars.shape[-1]
+    max_lanes = MSM_MAX_LANES // 2
+    c = c or choose_c(min(n, max_lanes // pre), factor=pre)
+    return _msm([(scalars, points_affine)], c, True, pre, max_lanes)[0]

@@ -20,6 +20,11 @@ evaluation on K5 alone: the last inverse pass multiplies by the coset keys
 CPU tensors each wrapper runs its plain version (`ntt_stage_plain`,
 `ntt_block_plain`, `ntt_block_scale_plain`, `ntt_block_h_plain`).
 
+The op surface (`ntt`, `ntt_inplace`, `initialize_domain`,
+`get_root_of_unity`, as in icicle_snark_tpu/ops/ntt.py) runs every
+ordering and an arbitrary coset on `ntt_natural`, K1 products against
+`powers_mont` tables and bit-reversal gathers.
+
 Data layout: (B, 8, n) int32, Montgomery form (fields/limbs.py).
 """
 
@@ -29,9 +34,11 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..config import NTTConfig, Ordering
 from ..fields import limbs as lb
 from ..fields.limbs import FR_SPEC, NLIMB, OP_ADD, OP_MUL, OP_SUB
 from ..refmath.field import W
+from ..runtime import default_device
 
 
 def bitrev_permutation(log_n: int) -> np.ndarray:
@@ -355,3 +362,97 @@ def coset_h_plain(x: torch.Tensor, dom: NTTDomain, keys_br_scaled: torch.Tensor)
         x = ntt_block_plain(x, dom.stw_fwd, low, k, False)
     low, k, _ = passes[-1]
     return ntt_block_h_plain(x, dom.stw_fwd, low, k, dom.r2)
+
+
+# ---------------------------------------------------------------- the op surface
+
+_DOMAINS: dict = {}
+
+
+def get_root_of_unity(log_n: int, root_tower=None) -> int:
+    """Primitive 2^log_n-th root of unity as an integer (ICICLE's
+    get_root_of_unity)."""
+    tower = root_tower or W
+    if log_n >= len(tower) or tower[log_n] == 0:
+        raise ValueError(f"no 2^{log_n} root of unity for this field")
+    return tower[log_n]
+
+
+def get_domain(log_n: int, device) -> NTTDomain:
+    """The NTTDomain of 2^log_n on `device`, built once and kept."""
+    key = (log_n, str(torch.device(device)))
+    if key not in _DOMAINS:
+        _DOMAINS[key] = NTTDomain(log_n, torch.device(device))
+    return _DOMAINS[key]
+
+
+def initialize_domain(log_n: int, device=None) -> NTTDomain:
+    """Build (or find) the domain of 2^log_n on `device`, by default the
+    runtime's default device (ICICLE's initialize_domain)."""
+    return get_domain(log_n, default_device() if device is None else device)
+
+
+def release_domain(log_n: int | None = None, device=None):
+    """Drop the kept domains (of one size and device, or all of them)."""
+    for key in list(_DOMAINS):
+        if (log_n is None or key[0] == log_n) and (
+                device is None or key[1] == str(torch.device(device))):
+            del _DOMAINS[key]
+
+
+def ntt(x: torch.Tensor, inverse: bool = False, cfg=None, spec=None) -> torch.Tensor:
+    """Config-driven transform, ICICLE's `ntt()` entry point with its
+    orderings, arbitrary coset generators and columns_batch
+    (icicle_snark_tpu/ops/ntt.py ntt).
+
+    x: (8, n) one vector, (B, 8, n) a row batch, or, with cfg.columns_batch,
+    (n, 8, B) a column batch; Montgomery-form Fr values on any device.
+
+    Semantics (ICICLE's backends):
+      * a forward coset NTT evaluates on g<w>: the input, in natural order,
+        is multiplied by the powers g^i before the transform;
+      * an inverse coset NTT interpolates from g<w>: the output is
+        multiplied by g^-i after the transform;
+      * R/M orderings permute the named side by the bit reversal (see
+        config.Ordering for NM == NR, MN == RN).
+    The transform is `ntt_natural` (K5 from NTT_BLOCK_MIN_LOG up, K3 below),
+    the coset products K1 launches against `powers_mont` tables, the bit
+    reversals gathers."""
+    cfg = cfg or NTTConfig()
+    if spec is not None and spec != FR_SPEC:
+        raise ValueError("ntt: the domain is BN254 Fr")
+    lb._check(x, "x")
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x.unsqueeze(0)
+    elif x.dim() != 3:
+        raise ValueError(f"ntt: want (8, n), (B, 8, n) or (n, 8, B), got {tuple(x.shape)}")
+    elif cfg.columns_batch:
+        x = x.permute(2, 1, 0)  # (n, 8, B) -> (B, 8, n)
+    n = x.shape[-1]
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n:
+        raise ValueError(f"NTT size must be a power of two, got {n}")
+    dom = get_domain(log_n, x.device)
+    x = x.contiguous()
+    if cfg.ordering in (Ordering.RN, Ordering.RR, Ordering.MN):
+        x = x[..., dom.bitrev]  # bring the input to natural order
+    if cfg.coset_gen is not None and not inverse:
+        x = lb.mont_mul(x, powers_mont(cfg.coset_gen, log_n, x.device), FR_SPEC)
+    y = ntt_natural(x, dom, inverse=inverse)
+    if cfg.coset_gen is not None and inverse:
+        g_inv = pow(cfg.coset_gen, -1, FR_SPEC.modulus)
+        y = lb.mont_mul(y, powers_mont(g_inv, log_n, y.device), FR_SPEC)
+    if cfg.ordering in (Ordering.NR, Ordering.RR, Ordering.NM):
+        y = y[..., dom.bitrev]
+    if squeeze:
+        return y[0]
+    if cfg.columns_batch:
+        return y.permute(2, 1, 0).contiguous()
+    return y
+
+
+def ntt_inplace(x: torch.Tensor, inverse: bool = False, cfg=None, spec=None) -> torch.Tensor:
+    """`ntt` written back IN PLACE into x (ICICLE's ntt_inplace); returns x."""
+    x.copy_(ntt(x, inverse=inverse, cfg=cfg, spec=spec))
+    return x

@@ -5,9 +5,11 @@ per constraint). As in icicle_snark_tpu/setup/fast_setup.py:
 
   * the host builds the window tables T[w][d] = d * 2^(8w) * G
     (32 x 256 points per group),
-  * the device gathers T[w][digit_w(k_i)] and mixed-adds over 32 steps,
-    n lanes in parallel: the port's plain-torch `pmadd` over CUDA tensors,
-    so every field operation is a K1 launch,
+  * the device looks up T[w][digit_w(k_i)] and mixed-adds over 32 windows,
+    n lanes in parallel: one K11 launch per chunk of lanes
+    (`fixed_base_msm`, csrc/fixed_base.cu, one thread a lane); its plain
+    version `fixed_base_msm_plain` is the 32-step scan of gathers and
+    plain-torch `pmadd`,
   * projective -> affine by a per-lane Fermat inverse (K7 point_to_affine),
   * coordinates come back Montgomery-form and are written to the zkey
     byte-for-byte identical to the host oracle's output.
@@ -18,9 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..curve import jcurve as jc
 from ..fields import limbs as lb
+from ..ops.msm import point_records
 from ..prover.cache import require_device
+from ..prover.pipeline import PhaseTimer
 from ..refmath import curve as cv
 from ..refmath.field import fq_to_mont
 from .r1cs import R1CS
@@ -62,14 +67,45 @@ def _digits(scalars: torch.Tensor) -> torch.Tensor:
     return torch.stack([(s >> (8 * j)) & 0xFF for j in range(4)], dim=1).reshape(N_WINDOWS, -1)
 
 
-def _fixed_base_msm(scalars: torch.Tensor, table, ops):
-    """P_i = k_i * G for all lanes: 32 steps of table gathers + pmadd."""
+def fixed_base_msm_plain(scalars: torch.Tensor, table, ops):
+    """The plain version of K11: P_i = k_i * G for all lanes, 32 steps of
+    table gathers and `pmadd` (icicle_snark_tpu/setup/fast_setup.py
+    _fixed_base_msm). With the plain ops (jc.G1_PLAIN, jc.G2_PLAIN) no kernel
+    runs; with jc.G1 / jc.G2 on CUDA tensors every field operation is a K1
+    launch, the route the device setup took before K11."""
     digs = _digits(scalars)
     acc = jc.identity(ops, scalars.shape[-1], scalars.device)
     for w in range(N_WINDOWS):
         idx = w * 256 + digs[w]
         acc = jc.pmadd(ops, acc, (table[0][..., idx], table[1][..., idx]))
     return acc
+
+
+def fixed_base_msm(scalars: torch.Tensor, table, ops, records: torch.Tensor | None = None):
+    """P_i = k_i * G for all lanes: scalars (8, n) int32 (integers below
+    2^256), `table` the (x, y) window table of `_table_g1`/`_table_g2`, ops
+    jc.G1 or jc.G2. Returns projective (x, y, z), each (8, n) or (2, 8, n).
+    One K11 launch for CUDA tensors (`records`, the table's
+    `point_records`, may be passed in to skip building them); the plain
+    version for CPU tensors."""
+    if scalars.dtype != torch.int32 or scalars.dim() != 2 or scalars.shape[0] != lb.NLIMB:
+        raise ValueError(f"fixed_base_msm: want (8, n) int32 scalars, got {tuple(scalars.shape)}")
+    if table[0].shape[-1] != N_WINDOWS * 256 or table[0].device != scalars.device:
+        raise ValueError("fixed_base_msm: the table is (x, y) over 32 x 256 lanes on the "
+                         "scalars' device")
+    plain = jc.G2_PLAIN if ops.g2 else jc.G1_PLAIN
+    if scalars.device.type == "cpu":
+        return fixed_base_msm_plain(scalars, table, plain)
+    if scalars.device.type != "cuda":
+        raise RuntimeError(f"fixed_base_msm: unsupported device {scalars.device}")
+    records = point_records(table) if records is None else records
+    scalars = scalars.contiguous()
+    n = scalars.shape[-1]
+    coords = (2, lb.NLIMB) if ops.g2 else (lb.NLIMB,)
+    out = torch.empty((3,) + coords + (n,), dtype=torch.int32, device=scalars.device)
+    kernels.FIXED_BASE.launch(int(ops.g2), out.data_ptr(), scalars.data_ptr(),
+                              records.data_ptr(), n)
+    return jc.point_unstack(out)
 
 
 def _to_affine_bytes(proj, ops) -> bytes:
@@ -84,25 +120,31 @@ def _to_affine_bytes(proj, ops) -> bytes:
 
 
 def _points_bytes(scalars_ints, table, ops, dev, chunk: int) -> bytes:
+    records = point_records(table) if dev.type == "cuda" else None
     parts = []
     for i in range(0, len(scalars_ints), chunk):
         sc = lb.ints_to_limbs(scalars_ints[i: i + chunk], dev)
-        parts.append(_to_affine_bytes(_fixed_base_msm(sc, table, ops), ops))
+        parts.append(_to_affine_bytes(fixed_base_msm(sc, table, ops, records), ops))
     return b"".join(parts)
 
 
 def groth16_setup_device(r1cs: R1CS, zkey_path: str, vk_path: str | None = None,
                          seed: bytes = b"icicle-snark-tpu-test-setup",
-                         chunk: int = 1 << 18, device="cuda"):
+                         chunk: int = 1 << 18, device="cuda", timer: PhaseTimer | None = None):
     """Device-backed trusted setup; byte-identical output to
     trusted_setup.groth16_setup (and to the JAX package's
-    groth16_setup_device) for the same seed."""
+    groth16_setup_device) for the same seed. `timer` (a
+    pipeline.PhaseTimer) takes the phases scalars, tables, g1_points,
+    g2_points and write."""
     dev = require_device(device)
+    timer = timer or PhaseTimer(None)
     waste = ToxicWaste(seed)
     scal = SetupScalars(r1cs, waste)
+    timer.mark("scalars")
     fb1, fb2 = _fixed_bases()
     t1 = _table_g1(fb1, dev)
     t2 = _table_g2(fb2, dev)
+    timer.mark("tables")
 
     def gen1(ints):
         return _points_bytes(ints, t1, jc.G1, dev, chunk)
@@ -118,10 +160,14 @@ def groth16_setup_device(r1cs: R1CS, zkey_path: str, vk_path: str | None = None,
         "beta": fb1.mul(waste.beta),
         "delta": fb1.mul(waste.delta),
     }
+    timer.mark("g1_points")
     g2_points = {
         "b2": _points_bytes(scal.v, t2, jc.G2, dev, chunk),
         "beta": fb2.mul(waste.beta),
         "gamma": fb2.mul(waste.gamma),
         "delta": fb2.mul(waste.delta),
     }
-    return write_zkey(scal, r1cs, zkey_path, vk_path, g1_points, g2_points)
+    timer.mark("g2_points")
+    vk = write_zkey(scal, r1cs, zkey_path, vk_path, g1_points, g2_points)
+    timer.mark("write")
+    return vk
