@@ -6,6 +6,7 @@
     python3 chip_smoke.py --r1cs-only   # construct_r1cs, the r1cs_ntt phase, the K5 pair
     python3 chip_smoke.py --ops-only    # K9-K11, K4 at small windows, the op surface
     python3 chip_smoke.py --setup-only  # the device setup on K11 and on K1 launches, timed
+    python3 chip_smoke.py --curves-only # K12-K14 and the other curves' MSMs and NTTs
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -58,7 +59,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
   9. complex(40, 50): the port's device setup gives the host oracle's zkey
      byte for byte, and its deterministic proof (through the CLI worker on
      the card) equals the oracle's byte for byte;
-  10. print the kernels line, then the result line.
+  10. the other curves (bls12-377, bls12-381, bw6-761; `curves_phase`): K12
+     (field_vec_n) on the five fields word for word against its plain
+     version at 2^16 lanes with 0, 1, p - 1, timed at 2^24; K13 (the MSM
+     accumulate and reduce at the six point types) word for word against
+     its plain versions at 2^12 lanes (4096 distinct points), c = 8 and the
+     default window, and on bit-valued scalars with BUCKET_PIECE 2; the
+     full-width MSMs (G1 2^22 and G2 2^20 lanes on bls12, 2^20 and 2^20 on
+     bw6-761) through the pipeline `curves/device.py` `msm` runs, equal in
+     affine form to the host's sum over the 64-point pool, timed; `msm()`
+     itself at 2^16 lanes from host lists; K14 (ntt_stage_n) over the three
+     Fr: the pair against the plain stages at 2^12 and at 2^22, 2^4 against
+     a host DFT, the round trip and a coset round trip through
+     `ntt(spec=...)` at 2^22, timed; the launches counted are those of the
+     driven calls alone;
+  11. print the kernels line, then the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -130,6 +145,19 @@ def cuda_time(fn, reps: int = 5, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def counted(total: dict, fn):
+    """fn() as one driven call: the kernel counts set to 0 just before it and
+    read just after, added into `total`, so that the comparisons and timings
+    around it are not counted. Returns fn()'s value."""
+    from icicle_snark_tpu_torch import kernels
+
+    kernels.reset_counts()
+    out = fn()
+    for k, v in kernels.counts().items():
+        total[k] = total.get(k, 0) + v
+    return out
 
 
 @contextlib.contextmanager
@@ -1592,6 +1620,471 @@ def op_surface_phase(rep, rng, dev, counts_log, failures, small: bool = False) -
     return readings
 
 
+# ---------------------------------------------------------------- the other curves (K12-K14)
+
+CURVES = ("bls12_377", "bls12_381", "bw6_761")
+# Full-width MSM lanes (G1, G2) per curve
+CURVE_MSM_LANES = {"bls12_377": (1 << 22, 1 << 20), "bls12_381": (1 << 22, 1 << 20),
+                   "bw6_761": (1 << 20, 1 << 20)}
+# The point formulas' products (csrc/curve.cuh): coordinate products and b3
+# multiplications per mixed add, add and doubling
+E_MULS = {"madd": (11, 2), "add": (12, 2), "dbl": (8, 1)}
+
+
+def muls_per_product(words: int) -> int:
+    """32-bit multiplies of one CIOS product at `words` words: words rounds
+    of 2 words for a * b_i (lo and hi), 1 for m and 2 words for m * p
+    (MULS_PER_MONT at 8 words)."""
+    return words * (4 * words + 1)
+
+
+def group_products(grp, op: str) -> int:
+    """Fq products of one point operation of a K13 group: 3 a coordinate
+    product over Fq2 (Karatsuba), 1 over Fq; b3 by addition chains except
+    bls12-377 G2's (two products by a constant, csrc/curve_n.cuh)."""
+    e_muls, b3s = E_MULS[op]
+    per = 3 if len(grp.coords) == 2 else 1
+    b3 = 2 if grp.name == "bls12_377_g2" else 0
+    return e_muls * per + b3s * b3
+
+
+def random_field_n(gen, spec, shape, dev, edges: bool = True):
+    """Field values as (..., words, n) int32 limbs, uniform over [0, t 2^(32
+    (words - 1))) with t the top word of p (so below p), made on `dev` by
+    `gen`; with `edges`, 0, 1 and p - 1 in the first lanes."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    *lead, n = shape
+    w = spec.words
+    x = torch.randint(-(1 << 31), 1 << 31, tuple(lead) + (w, n), dtype=torch.int32,
+                      device=dev, generator=gen)
+    x[..., w - 1, :] = torch.randint(0, spec.modulus >> (32 * (w - 1)), tuple(lead) + (n,),
+                                     dtype=torch.int32, device=dev, generator=gen)
+    if edges:
+        x[..., :3] = lb.ints_to_limbs([0, 1, spec.modulus - 1], dev, w)
+    return x
+
+
+def check_field_vec_n(rep, gen, dev, n: int = 1 << 24, n_plain: int = 1 << 16) -> tuple:
+    """K12 against its plain version word for word on every op and field at
+    n_plain lanes (0, 1, p - 1 among them; b equal to a in some lanes; b
+    broadcast as a constant), then timed at n lanes beside its bound."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curves import device as cdev
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    specs = []
+    for name in CURVES:
+        fq, fr = cdev.curve_specs(name)
+        specs += [s for s in (fr, fq) if s.modulus not in [t.modulus for t in specs]]
+    ok, fields = True, {}
+    for spec in specs:
+        a = random_field_n(gen, spec, (2, n_plain), dev)
+        b = random_field_n(gen, spec, (2, n_plain), dev)
+        b[..., 3:6] = a[..., 3:6]
+        errs = {}
+        for op in (lb.OP_MUL, lb.OP_ADD, lb.OP_SUB, lb.OP_NEG, lb.OP_RSUB):
+            bb = None if op == lb.OP_NEG else b
+            errs[op] = max_word_err(lb.field_op(op, a, bb, spec), lb.field_op_plain(op, a, bb, spec))
+        errs["mul const"] = max_word_err(lb.mont_mul(a, b[0, :, 7:8].contiguous(), spec),
+                                         lb.field_op_plain(lb.OP_MUL, a, b[0, :, 7:8], spec))
+        field_ok = all(e == 0 for e in errs.values())
+        ok &= field_ok
+        _, plain_ms = timed_once(lambda: lb.field_op_plain(lb.OP_MUL, a[0], b[0], spec))
+        del a, b
+        x = random_field_n(gen, spec, (n,), dev)
+        y = random_field_n(gen, spec, (n,), dev)
+        mul_ms = cuda_time(lambda: lb.mont_mul(x, y, spec), 10)
+        add_ms = cuda_time(lambda: lb.add_mod(x, y, spec), 10)
+        del x, y
+        torch.cuda.empty_cache()
+        w = spec.words
+        mul_b, by = bound(n * 3 * 4 * w, n * muls_per_product(w))
+        add_b, _ = bound(n * 3 * 4 * w, 0)
+        fields[spec.name] = dict(words=w, equal_to_plain=field_ok, mul_ms=mul_ms, add_ms=add_ms,
+                                 mul_bound_ms=mul_b, mul_bound_by=by, add_bound_ms=add_b,
+                                 plain_mul_ms=plain_ms, lanes=n, plain_lanes=n_plain)
+        log(f"  field_vec_n {spec.name} ({w} words): max word err "
+            f"{max(errs.values())} over mul/add/sub/neg/rsub/const; 2^{n.bit_length() - 1} "
+            f"lanes: mul {mul_ms:.4f} ms (bound {mul_b:.4f}, {by}), add {add_ms:.4f} ms "
+            f"(bound {add_b:.4f}); plain mul at {n_plain} lanes {plain_ms:.1f} ms")
+    widest = fields[specs[-1].name]
+    rep.add(kernels.FIELD_VEC_N.name, equal_to_plain=ok, max_abs_err=0.0 if ok else 1.0,
+            ms=widest["mul_ms"], plain_ms=widest["plain_mul_ms"],
+            bound_ms=widest["mul_bound_ms"], bound_by=widest["mul_bound_by"],
+            timed=f"{specs[-1].name} mont_mul over {n} lanes (plain at {n_plain}); every field "
+                  f"under by_field", by_field=fields)
+    return ok, fields
+
+
+def _pool_points(name: str, g2: bool, rng, count: int = 64):
+    """`count` multiples k G (k random below r) of the curve's G1 or G2
+    generator, affine, made on the host: the pool that the MSMs tile."""
+    from icicle_snark_tpu_torch.curves import host
+    from icicle_snark_tpu_torch.curves.params import get_curve
+
+    p = get_curve(name)
+    hc = host.g2_curve(p) if g2 else host.g1_curve(p)
+    gen = hc.from_affine(p.g2 if g2 else p.g1)
+    ks = [int.from_bytes(rng.bytes(48), "little") % p.r for _ in range(count)]
+    return hc, [hc.to_affine(hc.mul_scalar(gen, k)) for k in ks]
+
+
+def _chain_points(name: str, g2: bool, count: int) -> list:
+    """G, 2G, ..., count G of the curve's G1 or G2 generator, affine, one host
+    addition each: `count` distinct points."""
+    from icicle_snark_tpu_torch.curves import host
+    from icicle_snark_tpu_torch.curves.params import get_curve
+
+    p = get_curve(name)
+    hc = host.g2_curve(p) if g2 else host.g1_curve(p)
+    gen = hc.from_affine(p.g2 if g2 else p.g1)
+    pts, cur = [], gen
+    for _ in range(count):
+        pts.append(hc.to_affine(cur))
+        cur = hc.add(cur, gen)
+    return pts
+
+
+def _class_sums(words_np: np.ndarray, period: int, r: int) -> list:
+    """(words, n) uint32 scalars -> the exact sums, mod r, of the scalars of
+    each residue class i mod `period` (column sums in uint64, then ints)."""
+    w, n = words_np.shape
+    cols = words_np.reshape(w, n // period, period).astype(np.uint64).sum(axis=1)
+    return [sum(int(cols[k, j]) << (32 * k) for k in range(w)) % r for j in range(period)]
+
+
+def _host_msm(hc, scalars, points):
+    acc = hc.zero_pt
+    for s, a in zip(scalars, points):
+        if a is not None and s:
+            acc = hc.add(acc, hc.mul_scalar(hc.from_affine(a), s))
+    return acc
+
+
+def check_msm_n(gen, dev, lanes: int = 1 << 12) -> tuple:
+    """K13 accumulate and reduce against their plain versions word for word,
+    for the six groups at `lanes` lanes (`lanes` distinct points G, 2G, ...,
+    two of them (0, 0)): random scalars below r at c = 8 and at the default
+    window, and bit-valued scalars (half of all lanes in bucket 1 of window
+    0) at c = 8 with BUCKET_PIECE patched to 2, so that every fold level
+    runs. Returns (ok, readings)."""
+    import torch
+
+    from icicle_snark_tpu_torch.curves import device as cdev
+    from icicle_snark_tpu_torch.ops import msm
+
+    ok, out = True, {}
+    for name in CURVES:
+        fr = cdev.curve_specs(name)[1]
+        bits = 32 * fr.words
+        for g2 in (False, True):
+            grp = cdev.g2_group(name) if g2 else cdev.g1_group(name)
+            pts = _chain_points(name, g2, lanes)
+            pts[5] = pts[lanes // 2 + 40] = None
+            rec = msm.point_records(cdev.affine_to_device(pts, grp.ops, dev))
+            rand = random_field_n(gen, fr, (lanes,), dev)
+            bit_sc = torch.zeros_like(rand)
+            bit_sc[0] = torch.randint(0, 2, (lanes,), dtype=torch.int32, device=dev,
+                                      generator=gen)
+            cases = [("c 8", rand, 8, msm.BUCKET_PIECE),
+                     ("default c", rand, msm.choose_c(lanes, bits=bits), msm.BUCKET_PIECE),
+                     ("bits, c 8, L 2", bit_sc, 8, 2)]
+            for label, sc, c, piece in cases:
+                with patched((msm, "BUCKET_PIECE", piece)):
+                    half = 1 << (c - 1)
+                    order, negs, ends = msm.sort_windows(sc, [lanes], c)
+                    windows = order.shape[0]
+                    levels = len(msm.bucket_fold_plan(ends, windows, 1, half, lanes))
+                    bk = msm.msm_accumulate(rec, order, negs, ends, 1, half, grp)
+                    bp, acc_plain = timed_once(
+                        lambda: msm.msm_accumulate_plain(rec, order, negs, ends, 1, half, grp))
+                    wk = msm.msm_reduce(bp, windows, 1, half, grp)
+                    wp, red_plain = timed_once(
+                        lambda: msm.msm_reduce_plain(bp, windows, 1, half, grp))
+                same = bool(torch.equal(bk, bp)) and bool(torch.equal(wk, wp))
+                ok &= same
+                out[f"{grp.name} {label}"] = dict(
+                    c=c, windows=windows, levels=levels, equal_to_plain=same,
+                    acc_plain_ms=acc_plain, reduce_plain_ms=red_plain)
+                log(f"  msm_n {grp.name} {label}: {lanes} lanes, c {c}, W {windows}, {levels} "
+                    f"accumulate levels: accumulate and reduce equal to their plain versions "
+                    f"word for word: {same} (plain {acc_plain:.0f} + {red_plain:.0f} ms)")
+    return ok, out
+
+
+def drive_curve_msms(gen, rng, dev, counts_log, sizes=None, api_lanes: int = 1 << 16) -> tuple:
+    """The curves' MSMs at users' sizes: for each curve and group, scalars
+    below r (made on the card) and points tiled from a pool of 64 multiples
+    k G, through the device pipeline that `curves/device.py` `msm` runs
+    (`msm_window_sums` on K13, Horner on the host) at the default window,
+    held in AFFINE form against sum_j (sum_{i = j mod 64} s_i mod r) P_j
+    computed on the host; K13 timed with CUDA events beside its bounds, the
+    call on the host clock, the peak device memory. Then `msm()` itself at
+    `api_lanes`, host lists in and a host point out, against the same sum.
+    Each driven call is counted alone (`counted`): the timings are not.
+    Returns (ok, readings)."""
+    import torch
+
+    from icicle_snark_tpu_torch.curves import device as cdev
+    from icicle_snark_tpu_torch.curves.params import get_curve
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+
+    sizes = sizes or CURVE_MSM_LANES
+    ok, out = True, {}
+    pools = {(name, g2): _pool_points(name, g2, rng, 64) for name in CURVES for g2 in (False, True)}
+    launched = counts_log["curves: MSMs and msm()"] = {}
+    for name in CURVES:
+        p = get_curve(name)
+        fr = cdev.curve_specs(name)[1]
+        bits = 32 * fr.words
+        for g2 in (False, True):
+            hc, pool = pools[(name, g2)]
+            grp = cdev.g2_group(name) if g2 else cdev.g1_group(name)
+            n = sizes[name][int(g2)]
+            c = msm.choose_c(n, bits=bits)
+            rec = msm.point_records(cdev.affine_to_device(pool, grp.ops, dev)).repeat(n // 64, 1)
+            sc = random_field_n(gen, fr, (n,), dev, edges=False)
+            want = _host_msm(hc, _class_sums(sc.cpu().numpy().view(np.uint32), 64, p.r), pool)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ws = counted(launched, lambda: msm.msm_window_sums(sc, [n], rec, c, group=grp))
+            got = hc.zero_pt
+            for wp in reversed(cdev.window_points_to_host(ws, grp.ops, 0)):
+                for _ in range(c):
+                    got = hc.dbl(got)
+                got = hc.add(got, wp)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            same = hc.to_affine(got) == hc.to_affine(want)
+            ok &= same
+            # K13 alone, on this MSM's sorted lanes
+            half = 1 << (c - 1)
+            order, negs, ends = msm.sort_windows(sc, [n], c)
+            windows = order.shape[0]
+            bk = msm.msm_accumulate(rec, order, negs, ends, 1, half, grp)
+            acc_ms = cuda_time(lambda: msm.msm_accumulate(rec, order, negs, ends, 1, half, grp), 2)
+            red_ms = cuda_time(lambda: msm.msm_reduce(bk, windows, 1, half, grp), 2)
+            digits, _ = msm.window_digits_signed(sc, c)
+            madds = int((digits != 0).sum())
+            del digits
+            mp = muls_per_product(grp.coords[-1])
+            nbk = windows * half
+            acc_b = bound(n * 2 * grp.words * 4 + windows * n * 5 + ends.numel() * 4
+                          + nbk * 3 * grp.words * 4, madds * group_products(grp, "madd") * mp)
+            red_b = bound(nbk * 3 * grp.words * 4 + windows * 3 * grp.words * 4,
+                          windows * 2 * (half - 1) * group_products(grp, "add") * mp)
+            del order, negs, ends, bk, ws, rec, sc
+            torch.cuda.empty_cache()
+            out[grp.name] = dict(lanes=n, c=c, windows=windows, same_affine=same,
+                                 accumulate_ms=acc_ms, reduce_ms=red_ms, call_ms=call_ms,
+                                 accumulate_bound_ms=acc_b[0], accumulate_bound_by=acc_b[1],
+                                 reduce_bound_ms=red_b[0], reduce_bound_by=red_b[1],
+                                 mixed_adds=madds, peak_memory_gb=peak_gb)
+            log(f"  msm {grp.name}: {n} lanes, c {c}, W {windows}: affine result == host sum: "
+                f"{same}; accumulate {acc_ms:.2f} ms (bound {acc_b[0]:.2f}, {acc_b[1]}), reduce "
+                f"{red_ms:.2f} ms (bound {red_b[0]:.2f}, {red_b[1]}); the call {call_ms:.1f} ms "
+                f"(host clock, Horner included); peak device memory {peak_gb:.2f} GB")
+    # the entry point itself, host lists in
+    py_rng = np.random.default_rng(int(rng.integers(1 << 31)))
+    for name in CURVES:
+        p = get_curve(name)
+        fr = cdev.curve_specs(name)[1]
+        for g2 in (False, True):
+            hc, pool = pools[(name, g2)]
+            grp = cdev.g2_group(name) if g2 else cdev.g1_group(name)
+            n = api_lanes
+            scalars = [int.from_bytes(py_rng.bytes(4 * fr.words), "little") % p.r
+                       for _ in range(n)]
+            points = [pool[i % 64] for i in range(n)]
+            points[64 + 3] = None  # one infinity lane
+            sums = [sum(scalars[j::64]) % p.r for j in range(64)]
+            sums[3] = (sums[3] - scalars[64 + 3]) % p.r
+            want = _host_msm(hc, sums, pool)
+            t0 = time.perf_counter()
+            cdev.affine_to_device(points, grp.ops, dev)
+            lb.ints_to_limbs(scalars, dev, fr.words)
+            torch.cuda.synchronize()
+            conv_ms = (time.perf_counter() - t0) * 1e3
+            c = msm.choose_c(n, bits=32 * fr.words)
+            t0 = time.perf_counter()
+            got = counted(launched, lambda: cdev.msm(name, scalars, points, g2=g2, c=c, device=dev))
+            call_ms = (time.perf_counter() - t0) * 1e3
+            same = hc.to_affine(got) == hc.to_affine(want)
+            ok &= same
+            out[f"{grp.name} msm()"] = dict(lanes=n, c=c, same_affine=same, call_ms=call_ms,
+                                            host_conversion_ms=conv_ms)
+            log(f"  msm() {grp.name}: {n} lanes from host lists, c {c}: == host sum in affine: "
+                f"{same}; {call_ms:.1f} ms on the host clock, of which the host conversions "
+                f"take about {conv_ms:.1f} ms")
+    log("  launches of the driven MSMs and msm() calls: "
+        + json.dumps({k: v for k, v in launched.items() if v}))
+    return ok, out
+
+
+def _plain_pair(x, dom, spec):
+    """The forward and the inverse transform of x through the plain stages
+    (ntt_stage_n_plain) on x's device: what ntt_dit and intt_dif give."""
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+
+    f, i = x, x
+    for s in range(1, dom.log_n + 1):
+        f = ntt_ops.ntt_stage_n_plain(f, dom.stw_fwd, 1 << s, False, spec)
+    for s in range(dom.log_n, 0, -1):
+        i = ntt_ops.ntt_stage_n_plain(i, dom.stw_inv, 1 << s, True, spec,
+                                      dom.n_inv_mont if s == 1 else None)
+    return f, i
+
+
+def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12) -> tuple:
+    """K14 for the three Fr: the transform pair against the plain stages
+    word for word, at 2^plain_log (batch 2) and at 2^log_n (the plain stages
+    run on the card); at 2^4 against a host DFT; then driven at 2^log_n:
+    forward then inverse = identity, and `ntt(x, spec=fr,
+    cfg=NTTConfig(coset_gen))` forward then inverse = identity; the pair
+    timed at 2^log_n beside its bound. The domains' power tables and the
+    coset products run on K12. Only the driven calls are counted
+    (`counted`)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.config import NTTConfig
+    from icicle_snark_tpu_torch.curves import device as cdev
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+
+    ok, out = True, {}
+    launched = counts_log["curves: NTTs"] = {}
+    for name in CURVES:
+        fr = cdev.curve_specs(name)[1]
+        w = fr.words
+        # against the plain stages, batched
+        dom = ntt_ops.get_domain(plain_log, dev, fr)
+        x = random_field_n(gen, fr, (2, 1 << plain_log), dev)
+        fk, ik = ntt_ops.ntt_dit(x, dom), ntt_ops.intt_dif(x, dom)
+        fp, ip = _plain_pair(x, dom, fr)
+        same_small = bool(torch.equal(fk, fp)) and bool(torch.equal(ik, ip))
+        del x, fk, ik, fp, ip
+        # against a host DFT at 2^4
+        d4 = ntt_ops.get_domain(4, dev, fr)
+        x4 = random_field_n(gen, fr, (1, 16), dev)
+        vals = [v * fr.rinv % fr.modulus for v in lb.limbs_to_ints(x4[0])]
+        y4 = [v * fr.rinv % fr.modulus for v in lb.limbs_to_ints(ntt_ops.ntt_natural(x4, d4)[0])]
+        same_dft = y4 == [sum(vals[j] * pow(d4.w, i * j, fr.modulus) for j in range(16))
+                          % fr.modulus for i in range(16)]
+        # users' size: every stage against the plain stages on the same input
+        big = ntt_ops.get_domain(log_n, dev, fr)
+        xb = random_field_n(gen, fr, (1, 1 << log_n), dev)
+        fk, ik = ntt_ops.ntt_dit(xb, big), ntt_ops.intt_dif(xb, big)
+        (fp, ip), plain_ms = timed_once(lambda: _plain_pair(xb, big, fr))
+        same_big = bool(torch.equal(fk, fp)) and bool(torch.equal(ik, ip))
+        del fk, ik, fp, ip
+        torch.cuda.empty_cache()
+        # the driven calls: the round trip and a coset
+        back = counted(launched, lambda: ntt_ops.ntt_natural(ntt_ops.ntt_natural(xb, big), big,
+                                                             inverse=True))
+        same_trip = bool(torch.equal(back, xb))
+        cfg = NTTConfig(coset_gen=5)
+        coset = counted(launched, lambda: ntt_ops.ntt(ntt_ops.ntt(xb[0], cfg=cfg, spec=fr),
+                                                      inverse=True, cfg=cfg, spec=fr))
+        same_coset = bool(torch.equal(coset, xb[0]))
+        del back, coset
+        pair_ms = cuda_time(lambda: (ntt_ops.ntt_dit(xb, big), ntt_ops.intt_dif(xb, big)), 3)
+        n = 1 << log_n
+        mp = muls_per_product(w)
+        # per transform: n/2 log n products, n more in the scaled inverse stage;
+        # the values in and out once, the twiddles once
+        pair_b = bound(2 * (2 * n * 4 * w + n * 4 * w),
+                       (n * log_n + n) * mp)
+        del xb
+        ntt_ops.release_domain(log_n, dev)
+        torch.cuda.empty_cache()
+        same_plain = same_small and same_big
+        fine = same_plain and same_dft and same_trip and same_coset
+        ok &= fine
+        out[fr.name] = dict(words=w, equal_to_plain=same_plain, equal_to_plain_small=same_small,
+                            dft=same_dft, round_trip=same_trip, coset_round_trip=same_coset,
+                            pair_ms=pair_ms, bound_ms=pair_b[0], bound_by=pair_b[1],
+                            plain_pair_ms=plain_ms, log_n=log_n, plain_log_n=plain_log)
+        log(f"  ntt_stage_n {fr.name} ({w} words): pair == plain stages word for word at "
+            f"2^{plain_log} (batch 2): {same_small}, at 2^{log_n}: {same_big}; 2^4 == host DFT: "
+            f"{same_dft}; 2^{log_n} round trip: {same_trip}, coset round trip: {same_coset}; "
+            f"pair at 2^{log_n} {pair_ms:.3f} ms (bound {pair_b[0]:.3f}, {pair_b[1]}), plain "
+            f"pair at 2^{log_n} {plain_ms:.0f} ms")
+    log("  launches of the driven NTT calls: "
+        + json.dumps({k: v for k, v in launched.items() if v}))
+    last = out[cdev.curve_specs(CURVES[-1])[1].name]
+    rep.add(kernels.NTT_N.name, equal_to_plain=ok, max_abs_err=0.0 if ok else 1.0,
+            ms=last["pair_ms"], plain_ms=last["plain_pair_ms"], bound_ms=last["bound_ms"],
+            bound_by=last["bound_by"],
+            timed=f"bw6_761_fr forward + inverse over 2^{log_n} (plain pair on the card at the "
+                  f"same size); every Fr under by_field", by_field=out)
+    return ok, out
+
+
+def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> dict:
+    """The other curves (bls12-377, bls12-381, bw6-761): K12, K13 and K14
+    against their plain versions, then the MSMs, `msm()` and the NTTs driven
+    at users' sizes. `small` cuts every size for a rehearsal."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    readings = {}
+    t1 = time.perf_counter()
+    ok, readings["field_vec_n"] = check_field_vec_n(
+        rep, gen, dev, *((1 << 12, 1 << 8) if small else ()))
+    if not ok:
+        failures.append("kernel field_vec_n differs from its plain version")
+    log(f"[kernels] field_vec_n checked in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    ok, readings["msm_n_plain"] = check_msm_n(gen, dev, *((256,) if small else ()))
+    if not ok:
+        failures.append("kernel msm_accumulate_n or msm_reduce_n differs from its plain version")
+    log(f"[kernels] msm_accumulate_n and msm_reduce_n checked in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    small_sizes = {c: (1 << 10, 1 << 9) for c in CURVES}
+    ok, readings["msm"] = drive_curve_msms(gen, rng, dev, counts_log,
+                                           *((small_sizes, 1 << 8) if small else ()))
+    if not ok:
+        failures.append("a curve MSM differs from the host sum in affine form")
+    log(f"[curves] MSMs and msm() in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    ok, readings["ntt"] = check_ntt_n(rep, gen, dev, counts_log, *((10, 6) if small else ()))
+    if not ok:
+        failures.append("a curve NTT differs from its plain version, the DFT or the identity")
+    log(f"[kernels] ntt_stage_n and the curve NTTs in {time.perf_counter() - t1:.1f} s")
+    # K13's rows: the six full-width MSMs summed, the plain versions at the
+    # check's size (c = 8, random scalars)
+    msms = [v for k, v in readings["msm"].items() if not k.endswith("msm()")]
+    plains = [v for k, v in readings["msm_n_plain"].items() if k.endswith(" c 8")]
+    same = all(v["equal_to_plain"] for v in readings["msm_n_plain"].values())
+    for kern, key, pkey in ((kernels.MSM_ACCUMULATE_N, "accumulate", "acc_plain_ms"),
+                            (kernels.MSM_REDUCE_N, "reduce", "reduce_plain_ms")):
+        bnd = sum(v[f"{key}_bound_ms"] for v in msms)
+        rep.add(kern.name, equal_to_plain=same, max_abs_err=0.0 if same else 1.0,
+                ms=sum(v[f"{key}_ms"] for v in msms), plain_ms=sum(v[pkey] for v in plains),
+                bound_ms=bnd, bound_by="operations",
+                timed="the six full-width MSMs summed (plain versions: the six at "
+                      f"{256 if small else 1 << 12} lanes, c 8)")
+    for path, names in (("curves: MSMs and msm()", ("msm_accumulate_n", "msm_reduce_n")),
+                        ("curves: NTTs", ("ntt_stage_n", "field_vec_n"))):
+        for k in names:
+            if not counts_log.get(path, {}).get(k):
+                failures.append(f"{path} did not launch {k}")
+    readings["phase_s"] = time.perf_counter() - t0
+    return readings
+
+
 # ---------------------------------------------------------------- profile
 
 # the device functions of each kernel of kernels.ALL
@@ -1603,6 +2096,10 @@ KERNEL_FUNCTIONS = {
     "point_dbl_k": ("point_dbl_k_kernel",), "point_to_affine": ("point_to_affine_kernel",),
     "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
     "field_reduce": ("field_reduce_kernel",), "fixed_base_msm": ("fixed_base_kernel",),
+    "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_stage_n_kernel",),
+    # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>)
+    "msm_accumulate_n": ("msm_accumulate_kernel<EF",),
+    "msm_reduce_n": ("msm_reduce_segments_kernel<EF", "msm_reduce_rows_kernel<EF"),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -1840,6 +2337,37 @@ def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict
     return out
 
 
+def curves_only(dev, rng, card) -> int:
+    """--curves-only: the build's register lines, then `curves_phase` with
+    its kernel rows; writes chip_smoke_curves.json into OUT_DIR."""
+    from icicle_snark_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    for name, u in sorted(ptxas_usage().items()):
+        log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
+            f"{u.get('stack')} B, spill stores {u.get('spill_stores')} B, loads "
+            f"{u.get('spill_loads')} B")
+    rep, counts, failures = Report(), {}, []
+    warm_card(dev)
+    readings = curves_phase(rep, rng, dev, counts, failures)
+    rows = []
+    for k in (kernels.FIELD_VEC_N, kernels.MSM_ACCUMULATE_N, kernels.MSM_REDUCE_N, kernels.NTT_N):
+        ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
+        rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                     "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
+                     "library_ms": None, **rep.rows.get(k.name, {})})
+    log(f"[curves] phase in {readings['phase_s']:.1f} s; the command {time.perf_counter() - t0:.1f} "
+        "s after the build")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_curves.json"), "w") as fh:
+        json.dump({"card": card, "curves": readings, "path_counts": counts, "kernels": rows,
+                   "ptxas": ptxas_usage(), "failures": failures}, fh, indent=1)
+    print(json.dumps({"kernels": rows}), flush=True)
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--constraints", type=int, default=100000)
@@ -1858,6 +2386,9 @@ def main() -> int:
     ap.add_argument("--setup-only", action="store_true",
                     help="build, time the device setup at complex-N and complex-M on K11 and on "
                          "the plain scan over K1 launches, and stop")
+    ap.add_argument("--curves-only", action="store_true",
+                    help="build, check K12-K14 against their plain versions, drive the other "
+                         "curves' MSMs, msm() and NTTs, and stop")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -1896,6 +2427,8 @@ def main() -> int:
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
     if args.setup_only:
         return setup_routes(args, dev)
+    if args.curves_only:
+        return curves_only(dev, rng, card)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
@@ -2160,7 +2693,11 @@ def main() -> int:
     if not same_proof or "OK!" not in cli.stdout or cli.returncode:
         failures.append("small deterministic proof differs from the oracle's")
 
-    # ---- 10. report: a kernel's launches are those of the first driven path
+    # ---- 10. the other curves
+    curves = curves_phase(rep, rng, dev, path_counts, failures)
+    log(f"[curves] phase in {curves['phase_s']:.1f} s")
+
+    # ---- 11. report: a kernel's launches are those of the first driven path
     # that ran it (each path was driven with the counts set to 0 before it)
     rows = []
     for k in kernels.ALL:
@@ -2199,7 +2736,8 @@ def main() -> int:
                   "deterministic_variants": variants, "msm_plan_ms": big_plan_ms,
                   "bits_prove": bits_big, "msm_bits": bits_timing, "k4_sweep": sweep_k4,
                   "ntt_block": rep.rows.get(kernels.NTT_BLOCK.name)},
-        "probe": probe_rows, "multiply_rate": mul_rate, "path_counts": path_counts,
+        "probe": probe_rows, "multiply_rate": mul_rate, "curves": curves,
+        "path_counts": path_counts,
         "failures": failures, "total_s": time.perf_counter() - t_all, "kernels": rows,
     }
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -29,16 +29,20 @@ from ..refmath.field import Q, fq_to_mont
 
 
 class FqOps:
-    """Base-field ops on (8, n) limb tensors."""
+    """Base-field ops on (8, n) limb tensors. `spec` and `coords` (the
+    coordinate shape before the lane axis) are what curves/device.py's
+    tables for the other curves change."""
 
     g2 = False
+    spec = FQ_SPEC
+    coords = (NLIMB,)
 
     def __init__(self, plain: bool = False):
         self.plain = plain
         self._fn = lb.field_op_plain if plain else lb.field_op
 
     def _op(self, op, a, b=None):
-        return self._fn(op, a, b, FQ_SPEC)
+        return self._fn(op, a, b, self.spec)
 
     def add(self, a, b):
         return self._op(OP_ADD, a, b)
@@ -76,8 +80,8 @@ class FqOps:
 
     def inv(self, a):
         """a^-1 per lane by Fermat, square-and-multiply (0 maps to 0)."""
-        acc = lb.const(FQ_SPEC.r_mod, a.device).expand(a.shape).contiguous()
-        for bit in bin(Q - 2)[2:]:
+        acc = lb.one_mont(self.spec, a.device).expand(a.shape).contiguous()
+        for bit in bin(self.spec.modulus - 2)[2:]:
             acc = self.mul(acc, acc)
             if bit == "1":
                 acc = self.mul(acc, a)
@@ -89,6 +93,7 @@ class Fq2Ops(FqOps):
     and neg are one K1 launch over both components (batch 2)."""
 
     g2 = True
+    coords = (2, NLIMB)
 
     def mul_many(self, pairs):
         """k independent Fq2 products by Karatsuba as ONE Fq product launch
@@ -242,12 +247,11 @@ def points_equal(ops, p, q):
 
 
 def _check_point(ops, p, what: str):
-    want = 3 if ops.g2 else 2
     for a in p:
-        if (a.dtype != torch.int32 or a.dim() != want or a.shape[-2] != NLIMB
+        if (a.dtype != torch.int32 or tuple(a.shape[:-1]) != ops.coords
                 or a.shape != p[0].shape or a.device != p[0].device):
-            raise ValueError(f"{what}: want int32 {'(2, 8, n)' if ops.g2 else '(8, n)'} "
-                             f"coordinates, got {tuple(a.shape)}")
+            raise ValueError(f"{what}: want int32 {ops.coords + ('n',)} coordinates, "
+                             f"got {tuple(a.shape)}")
 
 
 def pdbl_k_plain(ops, p, k: int):

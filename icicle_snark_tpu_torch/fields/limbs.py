@@ -1,21 +1,25 @@
-"""BN254 Fr / Fq vector arithmetic on 8 x 32-bit limbs (kernel K1).
+"""Field vector arithmetic on 32-bit limbs: BN254 Fr / Fq on 8 words (kernel
+K1), and the fields of the other curves on 8, 12 or 24 words (kernel K12).
 
-Layout: a field vector is an (8, n) int32 tensor, limb-major, least
+Layout: a field vector is a (words, n) int32 tensor, limb-major, least
 significant limb first, read as uint32 by the kernels. Leading dimensions
-are batches: an Fq2 vector is (2, 8, n), a batch of B polynomials
-(B, 8, n); the limb axis is always dim -2. Values are canonical (< p) and
-in Montgomery form with R = 2^256, the snarkjs on-disk radix, so zkey
-coefficients and points upload with only a transpose of their (n, 8)
-words. (The JAX package's layout is (16, n) 16-bit limbs; the tests
-convert through `from_jax_limbs`/`to_jax_limbs`.)
+are batches: an Fq2 vector is (2, words, n), a batch of B polynomials
+(B, words, n); the limb axis is always dim -2. Values are canonical (< p)
+and in Montgomery form with R = 2^(32 words). For BN254 that is 2^256, the
+snarkjs on-disk radix, so zkey coefficients and points upload with only a
+transpose of their (n, 8) words. The JAX package's layout is (nlimb, n)
+16-bit limbs with R = 2^(16 nlimb); `FieldSpec` takes words = nlimb / 2,
+so R and every Montgomery value are the same integers (the tests convert
+through `from_jax_limbs`/`to_jax_limbs`).
 
 `mont_mul`, `add_mod`, `sub_mod`, `rsub_mod` and `neg_mod` launch
-`csrc/field_vec.cu` (K1) for CUDA tensors and run the plain version
+`csrc/field_vec.cu` (K1) for a BN254 spec and `csrc/field_vec_n.cu` (K12)
+for the other curves' fields, for CUDA tensors, and run the plain version
 `field_op_plain` for CPU tensors only; `mont_pow_const` (with `mont_inv`
 and `batch_inv`) launches `csrc/field_pow.cu` (K9), its plain version
-`field_pow_plain`. The plain version works on 16-bit limbs held in int64
-(torch on the CPU has no uint32 add or shift), and gives the kernel's
-canonical results exactly.
+`field_pow_plain`, and takes BN254 specs only. The plain version works on
+16-bit limbs held in int64 (torch on the CPU has no uint32 add or shift),
+and gives the kernels' canonical results exactly.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..errors import InvalidArgument
 from ..refmath.field import Q as _Q, R_MOD as _R
 
-NLIMB = 8
+NLIMB = 8  # BN254's words
 MASK16 = 0xFFFF
 
 OP_MUL, OP_ADD, OP_SUB, OP_NEG, OP_RSUB = 0, 1, 2, 3, 4  # OP_RSUB: b - a
@@ -38,11 +43,24 @@ OP_MUL, OP_ADD, OP_SUB, OP_NEG, OP_RSUB = 0, 1, 2, 3, 4  # OP_RSUB: b - a
 @dataclass(frozen=True)
 class FieldSpec:
     """Field parameters for both limb widths (32-bit for the kernels,
-    16-bit for the plain version)."""
+    16-bit for the plain version). words = ceil((bits + 1) / 32), so that
+    2p < R = 2^(32 words): half the JAX package's 16-bit limb count, and the
+    same R (8 words for BN254 and the bls12 Fr, 12 for the bls12 Fq and the
+    bw6-761 Fr, 24 for the bw6-761 Fq)."""
 
     modulus: int
     name: str
-    field_id: int  # the kernels' field selector: 0 = Fr, 1 = Fq
+    # the kernels' field selector: for BN254 (K1, K9, K10) 0 = Fr, 1 = Fq,
+    # found from the modulus when not given; for the other fields (K12, K14)
+    # as curves/device.py `curve_specs` assigns it (-1: no kernel has this
+    # field)
+    field_id: int = -1
+    # a scalar field's roots of unity, tower[i] of order 2^i, for
+    # ops/ntt.py NTTDomain (empty: BN254's refmath tower for its Fr, else
+    # none)
+    root_tower: tuple = field(default=(), compare=False, repr=False)
+    bn254: bool = field(init=False)    # K1's fields, not K12's
+    words: int = field(init=False)     # 32-bit limbs
     n0inv: int = field(init=False)     # -p^-1 mod 2^32
     n0inv16: int = field(init=False)   # -p^-1 mod 2^16
     r_mod: int = field(init=False)     # R mod p (Montgomery 1)
@@ -51,18 +69,26 @@ class FieldSpec:
 
     def __post_init__(self):
         p = self.modulus
-        object.__setattr__(self, "n0inv", (-pow(p, -1, 1 << 32)) % (1 << 32))
-        object.__setattr__(self, "n0inv16", (-pow(p, -1, 1 << 16)) % (1 << 16))
-        object.__setattr__(self, "r_mod", (1 << 256) % p)
-        object.__setattr__(self, "r2", (1 << 512) % p)
-        object.__setattr__(self, "rinv", pow(1 << 256, -1, p))
+        words = -(-(p.bit_length() + 1) // 32)
+        bn254 = p in (_R, _Q)
+        fid = self.field_id
+        if fid < 0 and bn254:
+            fid = 0 if p == _R else 1
+        for name, value in (
+                ("field_id", fid), ("bn254", bn254), ("words", words),
+                ("n0inv", (-pow(p, -1, 1 << 32)) % (1 << 32)),
+                ("n0inv16", (-pow(p, -1, 1 << 16)) % (1 << 16)),
+                ("r_mod", (1 << (32 * words)) % p), ("r2", (1 << (64 * words)) % p),
+                ("rinv", pow(1 << (32 * words), -1, p))):
+            object.__setattr__(self, name, value)
 
     def p16(self, device) -> torch.Tensor:
-        """(16, 1) int64 16-bit limbs of p."""
+        """(2 words, 1) int64 16-bit limbs of p."""
+        n16 = 2 * self.words
         return torch.tensor(
-            [(self.modulus >> (16 * i)) & MASK16 for i in range(16)],
+            [(self.modulus >> (16 * i)) & MASK16 for i in range(n16)],
             dtype=torch.int64, device=device,
-        ).reshape(16, 1)
+        ).reshape(n16, 1)
 
 
 FR_SPEC = FieldSpec(modulus=_R, name="bn254_fr", field_id=0)
@@ -71,73 +97,82 @@ FQ_SPEC = FieldSpec(modulus=_Q, name="bn254_fq", field_id=1)
 
 # ------------------------------------------------------------ conversions
 
-def ints_to_words(vals) -> np.ndarray:
-    """Iterable of ints (< 2^256) -> (n, 8) uint32 words (snarkjs layout)."""
+def ints_to_words(vals, words: int = NLIMB) -> np.ndarray:
+    """Iterable of ints (< 2^(32 words)) -> (n, words) uint32 words (for 8
+    words, the snarkjs layout)."""
     vals = list(vals)
-    raw = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    return np.frombuffer(raw, dtype="<u4").reshape(len(vals), NLIMB)
+    raw = b"".join(int(v).to_bytes(4 * words, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u4").reshape(len(vals), words)
 
 
 def words_to_limbs(words: np.ndarray, device="cpu") -> torch.Tensor:
-    """(n, 8) uint32 words -> (8, n) int32 limb tensor on `device`."""
+    """(n, words) uint32 words -> (words, n) int32 limb tensor on `device`."""
     w = np.array(np.asarray(words, dtype=np.uint32).T, order="C").view(np.int32)
     return torch.from_numpy(w).to(device)
 
 
-def ints_to_limbs(vals, device="cpu") -> torch.Tensor:
-    """Iterable of ints -> (8, n) int32 limb tensor."""
-    return words_to_limbs(ints_to_words(vals), device)
+def ints_to_limbs(vals, device="cpu", words: int = NLIMB) -> torch.Tensor:
+    """Iterable of ints -> (words, n) int32 limb tensor."""
+    return words_to_limbs(ints_to_words(vals, words), device)
 
 
 def limbs_to_words(t: torch.Tensor) -> np.ndarray:
-    """(8, n) limb tensor -> (n, 8) uint32 words (host)."""
+    """(words, n) limb tensor -> (n, words) uint32 words (host)."""
     return np.ascontiguousarray(t.detach().cpu().numpy().view(np.uint32).T)
 
 
 def limbs_to_ints(t: torch.Tensor) -> list:
-    """(8, n) limb tensor -> list of Python ints."""
+    """(words, n) limb tensor -> list of Python ints."""
+    size = 4 * t.shape[0]
     raw = limbs_to_words(t).astype("<u4").tobytes()
-    return [int.from_bytes(raw[32 * i: 32 * (i + 1)], "little") for i in range(len(raw) // 32)]
+    return [int.from_bytes(raw[size * i: size * (i + 1)], "little")
+            for i in range(len(raw) // size)]
 
 
-def from_jax_limbs(arr) -> np.ndarray:
-    """JAX (16, ...) 16-bit limb array -> (8, ...) int32 (limb axis 0)."""
+def from_jax_limbs(arr, fq2: bool = False) -> np.ndarray:
+    """JAX (2 words, ...) 16-bit limb array -> (words, ...) int32 (limb axis
+    0). fq2: a JAX Fq2 array (2 words, 2, ...) (the component axis after the
+    limbs, icicle_snark_tpu/curves/device.py) -> the port's (2, words, ...)."""
     a = np.asarray(arr, dtype=np.uint32)
-    return np.ascontiguousarray(a[0::2] | (a[1::2] << np.uint32(16))).view(np.int32)
+    out = np.ascontiguousarray(a[0::2] | (a[1::2] << np.uint32(16))).view(np.int32)
+    return np.ascontiguousarray(np.moveaxis(out, 1, 0)) if fq2 else out
 
 
-def to_jax_limbs(t) -> np.ndarray:
-    """(8, ...) int32 limbs (limb axis 0) -> JAX's (16, ...) uint32 layout."""
+def to_jax_limbs(t, fq2: bool = False) -> np.ndarray:
+    """(words, ...) int32 limbs (limb axis 0) -> JAX's (2 words, ...) uint32
+    layout. fq2: the port's (2, words, ...) -> JAX's (2 words, 2, ...)."""
     a = np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t)
     a = a.view(np.uint32)
+    if fq2:
+        a = np.moveaxis(a, 0, 1)
     out = np.empty((2 * a.shape[0],) + a.shape[1:], np.uint32)
     out[0::2] = a & np.uint32(0xFFFF)
     out[1::2] = a >> np.uint32(16)
     return out
 
 
-def const(value: int, device, lanes: int = 1) -> torch.Tensor:
-    """(8, lanes) int32 tensor holding `value` (as given: no Montgomery
+def const(value: int, device, lanes: int = 1, words: int = NLIMB) -> torch.Tensor:
+    """(words, lanes) int32 tensor holding `value` (as given: no Montgomery
     conversion) in every lane."""
-    return ints_to_limbs([value], device).expand(NLIMB, lanes).contiguous()
+    return ints_to_limbs([value], device, words).expand(words, lanes).contiguous()
 
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:
-    """(..., 8, n) -> (..., n) bool."""
+    """(..., words, n) -> (..., n) bool."""
     return (a == 0).all(dim=-2)
 
 
 # ------------------------------------------------- plain version (16-bit)
 
 def _to16(x: torch.Tensor) -> torch.Tensor:
-    """(..., 8, n) int32 -> (..., 16, n) int64 16-bit limbs."""
+    """(..., words, n) int32 -> (..., 2 words, n) int64 16-bit limbs."""
     v = x.to(torch.int64) & 0xFFFFFFFF
     return torch.stack([v & MASK16, v >> 16], dim=-2).reshape(
-        x.shape[:-2] + (16, x.shape[-1]))
+        x.shape[:-2] + (2 * x.shape[-2], x.shape[-1]))
 
 
 def _from16(l: torch.Tensor) -> torch.Tensor:
-    """(..., 16, n) int64 16-bit limbs -> (..., 8, n) int32 (two's
+    """(..., 2 words, n) int64 16-bit limbs -> (..., words, n) int32 (two's
     complement of the uint32 words)."""
     w = l[..., 0::2, :] | (l[..., 1::2, :] << 16)
     return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
@@ -158,28 +193,32 @@ def _normalize(cols: torch.Tensor) -> torch.Tensor:
 
 
 def _cond_sub_p16(l: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
-    """l (..., >=16, n) normalized limbs of a value < 2p -> canonical 16 limbs."""
-    top = l[..., 16:, :].sum(dim=-2) if l.shape[-2] > 16 else None
-    d = _normalize(torch.cat([l[..., :16, :] - spec.p16(l.device),
+    """l (..., >=L, n) normalized limbs of a value < 2p -> canonical L limbs
+    (L = 2 words)."""
+    n16 = 2 * spec.words
+    top = l[..., n16:, :].sum(dim=-2) if l.shape[-2] > n16 else None
+    d = _normalize(torch.cat([l[..., :n16, :] - spec.p16(l.device),
                               torch.zeros_like(l[..., :1, :])], dim=-2))
-    ge = d[..., 16, :] >= 0
+    ge = d[..., n16, :] >= 0
     if top is not None:
         ge = ge | (top > 0)
-    return torch.where(ge.unsqueeze(-2), d[..., :16, :], l[..., :16, :])
+    return torch.where(ge.unsqueeze(-2), d[..., :n16, :], l[..., :n16, :])
 
 
 def _mont_mul16(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
-    """CIOS Montgomery product a*b*2^-256 mod p on 16-bit limbs, with lazy
-    int64 columns (each stays below 2^38)."""
+    """CIOS Montgomery product a*b*R^-1 mod p on L = 2 words 16-bit limbs,
+    with lazy int64 columns (each stays below 2^40 at L = 48)."""
+    n16 = 2 * spec.words
     p = spec.p16(a.device)
     n0 = spec.n0inv16
-    acc = torch.zeros(a.shape[:-2] + (33, a.shape[-1]), dtype=torch.int64, device=a.device)
-    for i in range(16):
-        acc[..., i:i + 16, :] += a[..., i:i + 1, :] * b
+    acc = torch.zeros(a.shape[:-2] + (2 * n16 + 1, a.shape[-1]), dtype=torch.int64,
+                      device=a.device)
+    for i in range(n16):
+        acc[..., i:i + n16, :] += a[..., i:i + 1, :] * b
         m = ((acc[..., i, :] & MASK16) * n0) & MASK16
-        acc[..., i:i + 16, :] += m.unsqueeze(-2) * p
+        acc[..., i:i + n16, :] += m.unsqueeze(-2) * p
         acc[..., i + 1, :] += acc[..., i, :] >> 16
-    return _cond_sub_p16(_normalize(acc[..., 16:, :]), spec)
+    return _cond_sub_p16(_normalize(acc[..., n16:, :]), spec)
 
 
 def _add16(a, b, spec):
@@ -188,11 +227,13 @@ def _add16(a, b, spec):
 
 
 def _sub16(a, b, spec):
+    n16 = 2 * spec.words
     d = _normalize(torch.cat([a - b, torch.zeros_like(a[..., :1, :])], dim=-2))
-    under = (d[..., 16, :] < 0).to(torch.int64).unsqueeze(-2)
-    fixed = d[..., :16, :] + under * spec.p16(a.device)
-    # (a - b + 2^256) + p: drop the 2^256 carried out of the top limb
-    return _normalize(torch.cat([fixed, torch.zeros_like(fixed[..., :1, :])], dim=-2))[..., :16, :]
+    under = (d[..., n16, :] < 0).to(torch.int64).unsqueeze(-2)
+    fixed = d[..., :n16, :] + under * spec.p16(a.device)
+    # (a - b + R) + p: drop the R carried out of the top limb
+    return _normalize(torch.cat([fixed, torch.zeros_like(fixed[..., :1, :])],
+                                dim=-2))[..., :n16, :]
 
 
 def _neg16(a, spec):
@@ -201,18 +242,19 @@ def _neg16(a, spec):
 
 
 def _broadcast_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Expand b (nbb, 8, m) to a's (nb, 8, n) by the kernel's rule: block
-    bb % nbb, lane i % m."""
-    nb = a.numel() // (NLIMB * a.shape[-1])
-    nbb = b.numel() // (NLIMB * b.shape[-1])
-    b3 = b.reshape(nbb, NLIMB, b.shape[-1])
+    """Expand b (nbb, words, m) to a's (nb, words, n) by the kernel's rule:
+    block bb % nbb, lane i % m."""
+    w = a.shape[-2]
+    nb = a.numel() // (w * a.shape[-1])
+    nbb = b.numel() // (w * b.shape[-1])
+    b3 = b.reshape(nbb, w, b.shape[-1])
     b3 = b3.repeat(nb // nbb, 1, a.shape[-1] // b.shape[-1])
     return b3.reshape(a.shape)
 
 
 def field_op_plain(op: int, a: torch.Tensor, b: torch.Tensor | None,
                    spec: FieldSpec) -> torch.Tensor:
-    """The plain PyTorch version of K1, on any device."""
+    """The plain PyTorch version of K1 and K12, on any device."""
     a16 = _to16(a)
     if op == OP_NEG:
         return _from16(_neg16(a16, spec))
@@ -230,21 +272,24 @@ def field_op_plain(op: int, a: torch.Tensor, b: torch.Tensor | None,
     return _from16(r)
 
 
-# ------------------------------------------------------------ K1 wrapper
+# ------------------------------------------------------------ K1 / K12 wrapper
 
-def _check(t: torch.Tensor, what: str):
-    if t.dtype != torch.int32 or t.dim() < 2 or t.shape[-2] != NLIMB:
-        raise ValueError(f"{what}: want int32 (..., 8, n), got {t.dtype} {tuple(t.shape)}")
+def _check(t: torch.Tensor, what: str, words: int = NLIMB):
+    if t.dtype != torch.int32 or t.dim() < 2 or t.shape[-2] != words:
+        raise ValueError(
+            f"{what}: want int32 (..., {words}, n), got {t.dtype} {tuple(t.shape)}")
 
 
 def field_op(op: int, a: torch.Tensor, b: torch.Tensor | None,
              spec: FieldSpec) -> torch.Tensor:
-    """Elementwise field op; b broadcasts as (nbb, 8, m) blocks/lanes."""
-    _check(a, "a")
+    """Elementwise field op; b broadcasts as (nbb, words, m) blocks/lanes.
+    One K1 launch for a BN254 spec, one K12 launch for the other fields."""
+    w = spec.words
+    _check(a, "a", w)
     if b is not None:
-        _check(b, "b")
-        nb, n = a.numel() // (NLIMB * a.shape[-1]), a.shape[-1]
-        nbb, m = b.numel() // (NLIMB * b.shape[-1]), b.shape[-1]
+        _check(b, "b", w)
+        nb, n = a.numel() // (w * a.shape[-1]), a.shape[-1]
+        nbb, m = b.numel() // (w * b.shape[-1]), b.shape[-1]
         if nbb == 0 or m == 0 or nb % nbb or n % m or b.device != a.device:
             raise ValueError(
                 f"b {tuple(b.shape)} does not broadcast onto a {tuple(a.shape)}")
@@ -252,13 +297,16 @@ def field_op(op: int, a: torch.Tensor, b: torch.Tensor | None,
         return field_op_plain(op, a, b, spec)
     if a.device.type != "cuda":
         raise RuntimeError(f"field_op: unsupported device {a.device}")
+    if spec.field_id < 0:
+        raise InvalidArgument(f"field_op: no kernel for the field {spec.name}")
     a = a.contiguous()
     b = a if b is None else b.contiguous()
     out = torch.empty_like(a)
-    kernels.FIELD_VEC.launch(
+    kernel = kernels.FIELD_VEC if spec.bn254 else kernels.FIELD_VEC_N
+    kernel.launch(
         op, spec.field_id, out.data_ptr(), a.data_ptr(), b.data_ptr(),
-        a.numel() // (NLIMB * a.shape[-1]), a.shape[-1],
-        b.numel() // (NLIMB * b.shape[-1]), b.shape[-1],
+        a.numel() // (w * a.shape[-1]), a.shape[-1],
+        b.numel() // (w * b.shape[-1]), b.shape[-1],
     )
     return out
 
@@ -288,18 +336,24 @@ def neg_mod(a, spec: FieldSpec):
 
 def to_mont(a, spec: FieldSpec):
     """Standard form -> Montgomery form: a * R mod p."""
-    return mont_mul(a, const(spec.r2, a.device), spec)
+    return mont_mul(a, const(spec.r2, a.device, words=spec.words), spec)
 
 
 def mont_reduce(a, spec: FieldSpec):
     """REDC by one factor: a * R^-1 mod p (mont_mul by the standard 1; the
     from_mont of the op surface)."""
-    return mont_mul(a, const(1, a.device), spec)
+    return mont_mul(a, const(1, a.device, words=spec.words), spec)
 
 
 def one_mont(spec: FieldSpec, device, lanes: int = 1) -> torch.Tensor:
-    """(8, lanes) Montgomery one (R mod p)."""
-    return const(spec.r_mod, device, lanes)
+    """(words, lanes) Montgomery one (R mod p)."""
+    return const(spec.r_mod, device, lanes, spec.words)
+
+
+def require_bn254(spec: FieldSpec, what: str):
+    """K9 and K10 hold BN254's constants: any other field raises."""
+    if not spec.bn254:
+        raise InvalidArgument(f"{what}: the kernel covers BN254 Fr and Fq only, not {spec.name}")
 
 
 # ------------------------------------------------------------ K9 wrapper
@@ -320,7 +374,8 @@ def field_pow_plain(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Te
 def mont_pow_const(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Tensor:
     """a^exponent per element (Montgomery form in and out), 0 <= exponent <
     2^256; exponent 0 gives the Montgomery one. One K9 launch for a CUDA
-    tensor."""
+    tensor. BN254 fields only (InvalidArgument otherwise)."""
+    require_bn254(spec, "mont_pow_const")
     _check(a, "a")
     if not 0 <= exponent < 1 << 256:
         raise ValueError("mont_pow_const: the exponent must lie in [0, 2^256)")

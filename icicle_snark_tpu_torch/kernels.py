@@ -158,6 +158,14 @@ _SIGNATURES = {
     "snark_field_reduce": [_I, _I, _VP, _VP, _LL, _LL, _LL, _VP],
     # g2, out, scalars, table, n, stream
     "snark_fixed_base_msm": [_I, _VP, _VP, _VP, _LL, _VP],
+    # op, field (curves/device.py KERNEL_FIELDS), out, a, b, nb, n, nbb, m, stream
+    "snark_field_vec_n": [_I, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
+    # curve, then snark_msm_accumulate's arguments
+    "snark_msm_accumulate_n": [_I, _I, _I, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP],
+    # curve, then snark_msm_reduce's arguments
+    "snark_msm_reduce_n": [_I, _I, _I, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
+    # field, x, tw (stage-major), scale, batch, n, m, inverse, stream
+    "snark_ntt_stage_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
 }
 
 
@@ -233,9 +241,29 @@ FIXED_BASE = Kernel(
     "fixed_base_msm", "snark_fixed_base_msm", "icicle_snark_tpu_torch/csrc/fixed_base.cu",
     "icicle_snark_tpu/setup/fast_setup.py:81",
 )
+# The other curves (bls12-377, bls12-381, bw6-761)
+FIELD_VEC_N = Kernel(
+    "field_vec_n", "snark_field_vec_n", "icicle_snark_tpu_torch/csrc/field_vec_n.cu",
+    "icicle_snark_tpu/curves/device.py:41",
+)
+_MSM_N_SOURCES = "; ".join(f"icicle_snark_tpu_torch/csrc/msm_{c}.cu"
+                           for c in ("bls12_377", "bls12_381", "bw6_761"))
+MSM_ACCUMULATE_N = Kernel(
+    "msm_accumulate_n", "snark_msm_accumulate_n", _MSM_N_SOURCES,
+    "icicle_snark_tpu/curves/device.py:254; icicle_snark_tpu/ops/msm.py:609",
+)
+MSM_REDUCE_N = Kernel(
+    "msm_reduce_n", "snark_msm_reduce_n", _MSM_N_SOURCES,
+    "icicle_snark_tpu/curves/device.py:254; icicle_snark_tpu/ops/msm.py:701",
+)
+NTT_N = Kernel(
+    "ntt_stage_n", "snark_ntt_stage_n", "icicle_snark_tpu_torch/csrc/ntt_n.cu",
+    "icicle_snark_tpu/ops/ntt.py:180",
+)
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
-       FIELD_POW, FIELD_REDUCE, FIXED_BASE)
+       FIELD_POW, FIELD_REDUCE, FIXED_BASE,
+       FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N)
 
 
 def reset_counts():

@@ -34,9 +34,18 @@ kernels:
 The op surface (`msm_g1`, `msm_g1_many`, `msm_g2`, with config.MSMConfig)
 runs the same pipeline on any scalars below 2^254 and returns host points,
 as icicle_snark_tpu/ops/msm.py does.
+
+The other curves (curves/device.py) run steps 1-4 over their own point
+types: a `PointGroup` names the field-op tables, the coordinate shape and
+the kernels (K13, csrc/msm_<curve>.cu, K4's templates instantiated for the
+curve), and the scalar width comes from the scalars' word count (256 bits
+for the bls12 Fr, 384 for the bw6-761 Fr, as the JAX package's 16 * nlimb).
+BN254 calls pass `g2` as a bool, as before.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -82,9 +91,9 @@ MSM_MAX_LANES = 1 << 25
 MSM_PRE_DEFAULT = (1, 1)
 
 
-def merged_windows(c: int, factor: int = 1) -> int:
-    """Windows left after merging: wp = ceil(ceil(256 / c) / factor)."""
-    return -(-(-(-SCALAR_BITS // c)) // factor)
+def merged_windows(c: int, factor: int = 1, bits: int = SCALAR_BITS) -> int:
+    """Windows left after merging: wp = ceil(ceil(bits / c) / factor)."""
+    return -(-(-(-bits // c)) // factor)
 
 
 # What one bucket costs K4 reduce, in units of one mixed add of K4
@@ -92,7 +101,7 @@ def merged_windows(c: int, factor: int = 1) -> int:
 REDUCE_WEIGHT = 2
 
 
-def choose_c(n: int, groups: int = 1, factor: int = 1) -> int:
+def choose_c(n: int, groups: int = 1, factor: int = 1, bits: int = SCALAR_BITS) -> int:
     """Window size that minimises K4's modelled time (c in 8..16; signed
     digits need c >= 8): wp merged windows, each with one mixed add per
     point lane (n * factor, dead slots included) in the accumulate and
@@ -104,7 +113,7 @@ def choose_c(n: int, groups: int = 1, factor: int = 1) -> int:
     best_c, best_cost = 8, None
     for c in range(8, 17):
         half = 1 << (c - 1)
-        cost = merged_windows(c, factor) * (n * factor + REDUCE_WEIGHT * groups * half)
+        cost = merged_windows(c, factor, bits) * (n * factor + REDUCE_WEIGHT * groups * half)
         if best_cost is None or cost < best_cost:
             best_c, best_cost = c, cost
     return best_c
@@ -119,18 +128,21 @@ def choose_c_pre(n: int, groups: int = 1, g2: bool = False) -> tuple:
 
 
 def window_digits_signed(scalars: torch.Tensor, c: int):
-    """(8, n) int32 scalars -> (abs (W, n) int64 in [0, 2^(c-1)], neg (W, n)
-    bool): balanced digits, the carry moving into the next window. Scalars
-    below 2^254 never carry out of the top window for c >= 8."""
+    """(words, n) int32 scalars -> (abs (W, n) int64 in [0, 2^(c-1)], neg
+    (W, n) bool), W = ceil(32 words / c): balanced digits, the carry moving
+    into the next window. BN254 scalars below 2^254 never carry out of the
+    top window for c >= 8, nor do scalars below r of the other curves
+    (tests/test_torch_curves_msm.py)."""
     s = scalars.to(torch.int64) & 0xFFFFFFFF
-    n_windows = -(-SCALAR_BITS // c)
+    words = s.shape[0]
+    n_windows = -(-(32 * words) // c)
     mask, half, full = (1 << c) - 1, 1 << (c - 1), 1 << c
     carry = torch.zeros_like(s[0])
     outs_abs, outs_neg = [], []
     for w in range(n_windows):
         word, off = divmod(w * c, 32)
-        d = (s[word] >> off) if word < NLIMB else torch.zeros_like(carry)
-        if off + c > 32 and word + 1 < NLIMB:
+        d = (s[word] >> off) if word < words else torch.zeros_like(carry)
+        if off + c > 32 and word + 1 < words:
             d = d | (s[word + 1] << (32 - off))
         d = (d & mask) + carry
         neg = d > half
@@ -140,28 +152,64 @@ def window_digits_signed(scalars: torch.Tensor, c: int):
     return torch.stack(outs_abs), torch.stack(outs_neg)
 
 
-def _ops(g2: bool, plain: bool):
-    if g2:
-        return jc.G2_PLAIN if plain else jc.G2
-    return jc.G1_PLAIN if plain else jc.G1
+@dataclass(frozen=True)
+class PointGroup:
+    """The point type of one MSM pipeline: its field-op tables for the card
+    and for the plain versions (curve/jcurve.py's interface), and the
+    kernels' selector: curve -1 is BN254 (K4), 0, 1, 2 are bls12-377,
+    bls12-381 and bw6-761 (K13); g2 picks the group within the curve."""
+
+    name: str
+    ops: object
+    plain: object
+    g2: bool
+    curve: int = -1
+
+    @property
+    def coords(self) -> tuple:
+        """Shape of one coordinate before the lane axis: (words,) or (2, words)."""
+        return self.ops.coords
+
+    @property
+    def words(self) -> int:
+        """32-bit words of one coordinate (a record holds two)."""
+        return int(np.prod(self.coords))
+
+
+BN254_G1 = PointGroup("bn254_g1", jc.G1, jc.G1_PLAIN, False)
+BN254_G2 = PointGroup("bn254_g2", jc.G2, jc.G2_PLAIN, True)
+
+
+def as_group(g2) -> PointGroup:
+    """BN254's G1 / G2 for a bool, else the PointGroup given."""
+    if isinstance(g2, PointGroup):
+        return g2
+    return BN254_G2 if g2 else BN254_G1
+
+
+def _ops(g2, plain: bool):
+    grp = as_group(g2)
+    return grp.plain if plain else grp.ops
 
 
 # ---------------------------------------------------------------- K4: accumulate
 
 def point_records(points) -> torch.Tensor:
-    """Affine (x, y), each (8, n) (G1) or (2, 8, n) (G2) limb-major, -> the
-    lane-major records K4 reads: (n, 16) int32, x then y, for G1; (n, 32),
-    x.c0, x.c1, y.c0, y.c1, for G2. One point is one 64- or 128-byte row."""
+    """Affine (x, y), each (words, n) (Fq coordinates) or (2, words, n) (Fq2)
+    limb-major, -> the lane-major records K4 and K13 read: (n, 2 words)
+    int32, x then y, for Fq; (n, 4 words), x.c0, x.c1, y.c0, y.c1, for Fq2.
+    One point is one row: 64 / 128 bytes for BN254 G1 / G2, 96 / 192 for
+    bls12 G1 / G2, 192 for both bw6-761 groups."""
     x, y = points
     return torch.cat([x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])]).T.contiguous()
 
 
-def _record_coords(rec: torch.Tensor, g2: bool):
-    """(k, 16 | 32) records -> affine (x, y) limb-major, as point_records' input."""
+def _record_coords(rec: torch.Tensor, g2):
+    """(k, 2 words) records -> affine (x, y) limb-major, as point_records' input."""
+    coords = as_group(g2).coords
     t = rec.T
-    if g2:
-        return t[:16].reshape(2, NLIMB, -1), t[16:].reshape(2, NLIMB, -1)
-    return t[:NLIMB], t[NLIMB:]
+    half = t.shape[0] // 2
+    return t[:half].reshape(coords + (-1,)), t[half:].reshape(coords + (-1,))
 
 
 def bucket_fold_plan(ends, windows: int, groups: int, half: int, total: int) -> list:
@@ -200,15 +248,16 @@ def bucket_fold_plan(ends, windows: int, groups: int, half: int, total: int) -> 
         start, cnt = first, pieces
 
 
-def msm_bucket_sums_plain(g2: bool, affine: bool, src, order, negs, start, length):
-    """Plain version of one K4 accumulate level (csrc/msm.cu), in the
+def msm_bucket_sums_plain(g2, affine: bool, src, order, negs, start, length):
+    """Plain version of one K4 / K13 accumulate level (csrc/msm_kernels.cuh), in the
     kernel's order of additions: item i adds length[i] inputs from start[i]
     on. affine: src the (total, words) records, order/negs the flattened
     (W * total) sorted lanes and signs; the first point (y negated for a
     negative digit; (0, 0) is the identity) starts the sum, the others are
     mixed-added. Otherwise src is the previous level's (3, coords..., m)
     partial sums, the first starts the sum and the others are added.
-    Returns (3, coords..., n_items). Items are taken PLAIN_CHUNK at a time."""
+    Returns (3, coords..., n_items). Items are taken PLAIN_CHUNK at a time.
+    g2: a bool for BN254's groups, or a PointGroup."""
     ops = _ops(g2, True)
     n = start.shape[0]
     dev = start.device
@@ -246,14 +295,15 @@ def msm_bucket_sums_plain(g2: bool, affine: bool, src, order, negs, start, lengt
     return torch.cat(out, dim=-1)
 
 
-def msm_bucket_sums(g2: bool, affine: bool, src, order, negs, start, length):
-    """One K4 accumulate level (see msm_bucket_sums_plain) on the card."""
+def msm_bucket_sums(g2, affine: bool, src, order, negs, start, length):
+    """One accumulate level (see msm_bucket_sums_plain) on the card: K4 for
+    BN254, K13 for the other curves' groups."""
+    grp = as_group(g2)
     n = start.shape[0]
-    words = 32 if g2 else 16
     if affine:
-        if src.dim() != 2 or src.shape[1] != words or order.shape != negs.shape:
+        if src.dim() != 2 or src.shape[1] != 2 * grp.words or order.shape != negs.shape:
             raise ValueError("msm_bucket_sums: want (total, words) records and matching order/negs")
-    elif src.dim() != (4 if g2 else 3) or src.shape[0] != 3:
+    elif tuple(src.shape[:-1]) != (3,) + grp.coords:
         raise ValueError("msm_bucket_sums: want (3, coords..., m) partial sums")
     if start.shape != (n,) or length.shape != (n,) or start.dtype != torch.int64 \
             or length.dtype != torch.int32 or src.dtype != torch.int32:
@@ -265,56 +315,65 @@ def msm_bucket_sums(g2: bool, affine: bool, src, order, negs, start, length):
     src, start, length = src.contiguous(), start.contiguous(), length.contiguous()
     order = order.to(torch.int32).contiguous()
     negs = negs.to(torch.bool).contiguous()
-    coords = (2, NLIMB) if g2 else (NLIMB,)
-    out = torch.empty((3,) + coords + (n,), dtype=torch.int32, device=src.device)
+    out = torch.empty((3,) + grp.coords + (n,), dtype=torch.int32, device=src.device)
     n_src = src.shape[0] if affine else src.shape[-1]
-    kernels.MSM_ACCUMULATE.launch(
-        int(g2), int(affine), out.data_ptr(), src.data_ptr(), n_src, order.data_ptr(),
-        negs.data_ptr(), start.data_ptr(), length.data_ptr(), n,
-    )
+    args = (int(grp.g2), int(affine), out.data_ptr(), src.data_ptr(), n_src, order.data_ptr(),
+            negs.data_ptr(), start.data_ptr(), length.data_ptr(), n)
+    if grp.curve < 0:
+        kernels.MSM_ACCUMULATE.launch(*args)
+    else:
+        kernels.MSM_ACCUMULATE_N.launch(grp.curve, *args)
     return out
 
 
-def _accumulate(records, order, negs, ends, groups: int, half: int, level_fn):
-    g2 = records.shape[1] == 32
+def _records_group(records, group):
+    """The given group, or BN254's by the record width (16 or 32 words)."""
+    return as_group(records.shape[1] == 32) if group is None else group
+
+
+def _accumulate(records, order, negs, ends, groups: int, half: int, level_fn, group):
     windows, total = order.shape
     order, negs = order.reshape(-1), negs.reshape(-1)
     src, affine = records, True
     for start, length in bucket_fold_plan(ends, windows, groups, half, total):
-        src = level_fn(g2, affine, src, order, negs, start, length)
+        src = level_fn(group, affine, src, order, negs, start, length)
         affine = False
     return src
 
 
-def _check_accumulate(records, order, negs, ends, groups, half):
+def _check_accumulate(records, order, negs, ends, groups, half, group):
     windows, total = order.shape
-    if (records.dim() != 2 or records.shape[1] not in (16, 32) or records.shape[0] != total
+    if (records.dim() != 2 or records.shape[1] != 2 * group.words
+            or records.shape[0] != total
             or records.dtype != torch.int32 or negs.shape != order.shape
             or ends.shape != (windows, groups * (half + 1))):
         raise ValueError("msm_accumulate: inconsistent shapes")
 
 
-def msm_accumulate_plain(records, order, negs, ends, groups: int, half: int):
-    """Plain version of K4 accumulate: every level in plain torch."""
-    _check_accumulate(records, order, negs, ends, groups, half)
-    return _accumulate(records, order, negs, ends, groups, half, msm_bucket_sums_plain)
+def msm_accumulate_plain(records, order, negs, ends, groups: int, half: int, group=None):
+    """Plain version of K4 / K13 accumulate: every level in plain torch."""
+    group = _records_group(records, group)
+    _check_accumulate(records, order, negs, ends, groups, half, group)
+    return _accumulate(records, order, negs, ends, groups, half, msm_bucket_sums_plain, group)
 
 
-def msm_accumulate(records, order, negs, ends, groups: int, half: int):
+def msm_accumulate(records, order, negs, ends, groups: int, half: int, group=None):
     """Bucket sums of one MSM pipeline (all windows and groups).
 
-    records: (total, 16) G1 or (total, 32) G2 affine points (point_records);
+    records: (total, 2 words) affine points (point_records): (total, 16) G1
+    or (total, 32) G2 of BN254 when `group` is None, else of `group`;
     order: (W, total) int32 lane order of each window sorted by key;
     negs: (W, total) bool digit signs in that order;
     ends: (W, G*(H+1)) int32, lanes with key <= k.
     Returns (3, coords..., W*G*H) projective bucket sums (bucket b at b-1).
-    One launch per level of bucket_fold_plan."""
-    _check_accumulate(records, order, negs, ends, groups, half)
+    One launch per level of bucket_fold_plan (K4 for BN254, K13 else)."""
+    group = _records_group(records, group)
+    _check_accumulate(records, order, negs, ends, groups, half, group)
     if records.device.type == "cpu":
-        return msm_accumulate_plain(records, order, negs, ends, groups, half)
+        return msm_accumulate_plain(records, order, negs, ends, groups, half, group)
     if records.device.type != "cuda":
         raise RuntimeError(f"msm_accumulate: unsupported device {records.device}")
-    return _accumulate(records, order, negs, ends, groups, half, msm_bucket_sums)
+    return _accumulate(records, order, negs, ends, groups, half, msm_bucket_sums, group)
 
 
 # ---------------------------------------------------------------- K4: reduce
@@ -397,26 +456,33 @@ def msm_reduce_rows_plain(ops, seg_s, seg_t, windows: int, groups: int, n_seg: i
     return out.reshape(shp + (windows, groups)).transpose(-1, -2).contiguous()
 
 
-def msm_reduce_plain(buckets, windows: int, groups: int, half: int):
-    """Plain version of K4 reduce: (3, coords..., W*G*H) -> (3, coords..., G, W)."""
-    ops = _ops(buckets.dim() == 4, True)
+def _buckets_group(buckets, group):
+    """The given group, or BN254's by the bucket sums' rank."""
+    return as_group(buckets.dim() == 4) if group is None else group
+
+
+def msm_reduce_plain(buckets, windows: int, groups: int, half: int, group=None):
+    """Plain version of K4 / K13 reduce: (3, coords..., W*G*H) -> (3,
+    coords..., G, W)."""
+    ops = _buckets_group(buckets, group).plain
     seg, n_seg, nt, _q = reduce_shape(half)
     seg_s, seg_t = msm_reduce_segments_plain(ops, buckets, windows * groups, half, seg)
     return msm_reduce_rows_plain(ops, seg_s, seg_t, windows, groups, n_seg, nt, seg)
 
 
-def msm_reduce(buckets, windows: int, groups: int, half: int):
+def msm_reduce(buckets, windows: int, groups: int, half: int, group=None):
     """Window sums sum_b b * bucket_b: (3, coords..., W*G*H) -> (3, coords..., G, W).
-    Two launches (segments, rows)."""
-    g2 = buckets.dim() == 4
+    Two launches (segments, rows) of K4 for BN254 (`group` None: G1 or G2 by
+    the rank), of K13 for the other curves' groups."""
+    grp = _buckets_group(buckets, group)
     if (buckets.shape[-1] != windows * groups * half or half & (half - 1)
-            or buckets.dtype != torch.int32 or buckets.shape[0] != 3):
+            or buckets.dtype != torch.int32 or tuple(buckets.shape[:-1]) != (3,) + grp.coords):
         raise ValueError("msm_reduce: inconsistent shapes")
     if REDUCE_SEG & (REDUCE_SEG - 1) or REDUCE_BLOCK & (REDUCE_BLOCK - 1) or REDUCE_BLOCK > 256:
         raise ValueError("msm_reduce: REDUCE_SEG and REDUCE_BLOCK must be powers of two, "
                          "REDUCE_BLOCK at most 256")
     if buckets.device.type == "cpu":
-        return msm_reduce_plain(buckets, windows, groups, half)
+        return msm_reduce_plain(buckets, windows, groups, half, grp)
     if buckets.device.type != "cuda":
         raise RuntimeError(f"msm_reduce: unsupported device {buckets.device}")
     buckets = buckets.contiguous()
@@ -427,10 +493,12 @@ def msm_reduce(buckets, windows: int, groups: int, half: int):
                                 device=buckets.device) for _ in range(2))
     out = torch.empty((3,) + coords + (groups, windows), dtype=torch.int32, device=buckets.device)
     for stage in (0, 1):
-        kernels.MSM_REDUCE.launch(
-            int(g2), stage, out.data_ptr(), seg_s.data_ptr(), seg_t.data_ptr(),
-            buckets.data_ptr(), windows, groups, half, seg, nt,
-        )
+        args = (int(grp.g2), stage, out.data_ptr(), seg_s.data_ptr(), seg_t.data_ptr(),
+                buckets.data_ptr(), windows, groups, half, seg, nt)
+        if grp.curve < 0:
+            kernels.MSM_REDUCE.launch(*args)
+        else:
+            kernels.MSM_REDUCE_N.launch(grp.curve, *args)
     return out
 
 
@@ -532,23 +600,26 @@ def sort_windows(scalars: torch.Tensor, groups_of, c: int, precompute: int = 1):
     return order.to(torch.int32), negs, ends.to(torch.int32)
 
 
-def _window_sums(scalars, groups_of, records, c: int, precompute: int):
+def _window_sums(scalars, groups_of, records, c: int, precompute: int, group=None):
     groups = groups_of[1] if isinstance(groups_of, tuple) else len(groups_of)
     order, negs, ends = sort_windows(scalars, groups_of, c, precompute)
     half = 1 << (c - 1)
-    buckets = msm_accumulate(records, order, negs, ends, groups, half)
-    return msm_reduce(buckets, order.shape[0], groups, half)
+    buckets = msm_accumulate(records, order, negs, ends, groups, half, group)
+    return msm_reduce(buckets, order.shape[0], groups, half, group)
 
 
-def msm_window_sums(scalars: torch.Tensor, group_sizes, records, c: int, precompute: int = 1):
-    """Window sums of group-concatenated MSMs: scalars (8, total), records
-    the `point_records` of the affine points concatenated in the same lane
-    order (total * precompute rows in the `precompute_bases` layout).
-    Returns stacked (3, coords..., G, wp) projective Montgomery window sums."""
+def msm_window_sums(scalars: torch.Tensor, group_sizes, records, c: int, precompute: int = 1,
+                    group=None):
+    """Window sums of group-concatenated MSMs: scalars (words, total) (8 for
+    BN254), records the `point_records` of the affine points concatenated in
+    the same lane order (total * precompute rows in the `precompute_bases`
+    layout), of BN254's G1 or G2 (`group` None) or of `group`.
+    Returns stacked (3, coords..., G, wp) projective Montgomery window sums,
+    wp = merged_windows(c, precompute, 32 words)."""
     if (scalars.shape[-1] != sum(group_sizes)
             or records.shape[0] != scalars.shape[-1] * precompute):
         raise ValueError("msm_window_sums: scalar and point lanes differ")
-    return _window_sums(scalars, list(group_sizes), records, c, precompute)
+    return _window_sums(scalars, list(group_sizes), records, c, precompute, group)
 
 
 def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_lanes: int,

@@ -1,4 +1,5 @@
-"""Batched radix-2 NTT over BN254 Fr (kernels K3 and K5).
+"""Batched radix-2 NTT over BN254 Fr (kernels K3 and K5) and over the scalar
+fields of bls12-377, bls12-381 and bw6-761 (kernel K14).
 
 The prove pipeline never needs natural->natural transforms: `intt_dif`
 takes natural-order values to BIT-REVERSED coefficients (Gentleman-Sande,
@@ -25,7 +26,14 @@ The op surface (`ntt`, `ntt_inplace`, `initialize_domain`,
 ordering and an arbitrary coset on `ntt_natural`, K1 products against
 `powers_mont` tables and bit-reversal gathers.
 
-Data layout: (B, 8, n) int32, Montgomery form (fields/limbs.py).
+The other curves' Fr (`NTTDomain(log_n, device, spec, root_tower)`, as
+the JAX NTTDomain(log_n, spec, root_tower)) run the same pair of networks
+stage by stage on K14 (`csrc/ntt_n.cu`, K3's design over a stage-major
+twiddle table), with K12 for their products and power tables; K5 and K3
+stay BN254's. The plain version of a K14 stage is `ntt_stage_n_plain`.
+
+Data layout: (B, words, n) int32, Montgomery form (fields/limbs.py): 8
+words for BN254 Fr and the bls12 Fr, 12 for the bw6-761 Fr.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from .. import kernels
 from ..config import NTTConfig, Ordering
+from ..errors import InvalidArgument
 from ..fields import limbs as lb
 from ..fields.limbs import FR_SPEC, NLIMB, OP_ADD, OP_MUL, OP_SUB
 from ..refmath.field import W
@@ -52,21 +61,22 @@ def bitrev_permutation(log_n: int) -> np.ndarray:
 
 
 def powers_mont(base_int: int, log_n: int, device, spec=FR_SPEC) -> torch.Tensor:
-    """(8, 2^log_n) Montgomery-form powers base^0..base^(n-1), by doubling:
-    powers [2^k, 2^(k+1)) are powers [0, 2^k) times base^(2^k), one K1
-    product per step with the constant broadcast over the lanes."""
+    """(words, 2^log_n) Montgomery-form powers base^0..base^(n-1), by
+    doubling: powers [2^k, 2^(k+1)) are powers [0, 2^k) times base^(2^k),
+    one K1 (K12) product per step with the constant broadcast over the
+    lanes."""
     p = spec.modulus
-    table = lb.const(spec.r_mod, device)
+    table = lb.one_mont(spec, device)
     step = base_int % p
     for _ in range(log_n):
-        factor = lb.const(step * spec.r_mod % p, device)
+        factor = lb.const(step * spec.r_mod % p, device, words=spec.words)
         table = torch.cat([table, lb.mont_mul(table, factor, spec)], dim=-1)
         step = step * step % p
     return table
 
 
 def stage_major(tw: torch.Tensor) -> torch.Tensor:
-    """(8, n) powers w^0 .. w^(n-1) -> the stage-major (8, n) table: the
+    """(words, n) powers w^0 .. w^(n-1) -> the stage-major (words, n) table: the
     stage of span m = 2^s has its half-span of twiddles w^(j n / m),
     j < m/2, in lanes [m/2 - 1, m - 1); the last lane is unused (zero)."""
     n = tw.shape[-1]
@@ -74,24 +84,40 @@ def stage_major(tw: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts + [torch.zeros_like(tw[:, :1])], dim=-1).contiguous()
 
 
-class NTTDomain:
-    """Twiddle tables of one transform size on one device (the analog of
-    the reference's NTT domain)."""
+def default_tower(spec) -> list:
+    """The root tower of a scalar field (W[i] a primitive 2^i-th root of
+    unity): the spec's own (curves/device.py `curve_specs` gives each Fr
+    its curve's), else BN254's refmath tower for BN254's Fr."""
+    if spec.root_tower:
+        return list(spec.root_tower)
+    if spec.modulus == FR_SPEC.modulus:
+        return W
+    raise ValueError(f"ntt: no root tower known for {spec.name}; pass root_tower")
 
-    def __init__(self, log_n: int, device):
-        if log_n >= len(W):
-            raise ValueError(f"bn254_fr supports NTTs up to 2^{len(W) - 1}")
+
+class NTTDomain:
+    """Twiddle tables of one transform size and field on one device (the
+    analog of the reference's NTT domain). `spec` (default BN254 Fr) and
+    `root_tower` (default `default_tower(spec)`) as the JAX NTTDomain's."""
+
+    def __init__(self, log_n: int, device, spec=None, root_tower=None):
+        spec = spec or FR_SPEC
+        tower = root_tower or default_tower(spec)
+        if log_n >= len(tower):
+            raise ValueError(f"{spec.name} supports NTTs up to 2^{len(tower) - 1}")
+        p = spec.modulus
+        self.spec = spec
         self.log_n = log_n
         self.n = 1 << log_n
-        self.w = W[log_n]
-        self.tw_fwd = powers_mont(self.w, log_n, device)
-        self.tw_inv = powers_mont(pow(self.w, -1, FR_SPEC.modulus), log_n, device)
-        # the same twiddles stage by stage, for K5
+        self.w = tower[log_n]
+        self.tw_fwd = powers_mont(self.w, log_n, device, spec)
+        self.tw_inv = powers_mont(pow(self.w, -1, p), log_n, device, spec)
+        # the same twiddles stage by stage, for K5 and K14
         self.stw_fwd = stage_major(self.tw_fwd)
         self.stw_inv = stage_major(self.tw_inv)
-        self.n_inv_mont = lb.const(
-            pow(self.n, -1, FR_SPEC.modulus) * FR_SPEC.r_mod % FR_SPEC.modulus, device)
-        self.r2 = lb.const(FR_SPEC.r2, device)  # h's factor R^2 (fused into K5)
+        self.n_inv_mont = lb.const(pow(self.n, -1, p) * spec.r_mod % p, device,
+                                   words=spec.words)
+        self.r2 = lb.const(spec.r2, device, words=spec.words)  # h's R^2 (fused into K5)
         self.bitrev = torch.from_numpy(bitrev_permutation(log_n)).to(device)
 
 
@@ -106,15 +132,16 @@ def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
 
 
 def _butterflies_plain(x: torch.Tensor, w: torch.Tensor, m: int, inverse: bool,
-                       scale: torch.Tensor | None) -> torch.Tensor:
-    """One stage of span m over (B, 8, n) with its (8, m/2) twiddles given."""
-    b, _, n = x.shape
+                       scale: torch.Tensor | None, spec=FR_SPEC) -> torch.Tensor:
+    """One stage of span m over (B, words, n) with its (words, m/2) twiddles
+    given."""
+    b, words, n = x.shape
     h = m // 2
-    xr = x.reshape(b, NLIMB, n // m, 2, h).permute(0, 2, 3, 1, 4)  # (B, n/m, 2, 8, h)
+    xr = x.reshape(b, words, n // m, 2, h).permute(0, 2, 3, 1, 4)  # (B, n/m, 2, words, h)
     u, v = xr[:, :, 0], xr[:, :, 1]
 
     def op(code, a, c):
-        return lb.field_op_plain(code, a, c, FR_SPEC)
+        return lb.field_op_plain(code, a, c, spec)
 
     if inverse:
         lo = op(OP_ADD, u, v)
@@ -124,8 +151,8 @@ def _butterflies_plain(x: torch.Tensor, w: torch.Tensor, m: int, inverse: bool,
     else:
         vw = op(OP_MUL, v, w)
         lo, hi = op(OP_ADD, u, vw), op(OP_SUB, u, vw)
-    out = torch.stack([lo, hi], dim=2)  # (B, n/m, 2, 8, h)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, NLIMB, n)
+    out = torch.stack([lo, hi], dim=2)  # (B, n/m, 2, words, h)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, words, n)
 
 
 def ntt_stage(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
@@ -147,6 +174,45 @@ def ntt_stage(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
     scale = None if scale is None else scale.contiguous()
     kernels.NTT.launch(
         x.data_ptr(), tw.data_ptr(), None if scale is None else scale.data_ptr(),
+        b, n, m, int(inverse),
+    )
+
+
+# ---------------------------------------------------------------- K14
+
+def ntt_stage_n_plain(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
+                      scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K14: one butterfly stage of span m over
+    (B, words, n) with the stage-major table `stw` (the stage's twiddles at
+    lanes m/2 - 1 .. m - 2); returns the new tensor."""
+    h = m // 2
+    return _butterflies_plain(x, stw[:, h - 1: 2 * h - 1], m, inverse, scale, spec)
+
+
+def ntt_stage_n(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
+                scale: torch.Tensor | None = None) -> None:
+    """One butterfly stage of span m over a non-BN254 Fr, IN PLACE on x
+    (B, words, n) int32, as `ntt_stage` with the stage-major table of
+    `NTTDomain.stw_*` and `scale` (words, 1). One K14 launch for CUDA
+    tensors."""
+    w = spec.words
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != w or not x.is_contiguous():
+        raise ValueError(f"ntt_stage_n: want contiguous int32 (B, {w}, n), got {tuple(x.shape)}")
+    b, _, n = x.shape
+    if stw.shape != (w, n) or m < 2 or n % m or (scale is not None and scale.shape != (w, 1)):
+        raise ValueError(f"ntt_stage_n: bad twiddles {tuple(stw.shape)}, scale or span {m} "
+                         f"for n={n}")
+    if x.device.type == "cpu":
+        x.copy_(ntt_stage_n_plain(x, stw, m, inverse, spec, scale))
+        return
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ntt_stage_n: unsupported device {x.device}")
+    if spec.bn254 or spec.field_id < 0:
+        raise InvalidArgument(f"ntt_stage_n: K14 covers the bls12 and bw6-761 Fr, not {spec.name}")
+    stw = stw.contiguous()
+    scale = None if scale is None else scale.contiguous()
+    kernels.NTT_N.launch(
+        spec.field_id, x.data_ptr(), stw.data_ptr(), None if scale is None else scale.data_ptr(),
         b, n, m, int(inverse),
     )
 
@@ -278,16 +344,24 @@ def ntt_block(x: torch.Tensor, tw: torch.Tensor, low: int, k: int, tcols_log: in
 # ---------------------------------------------------------------- transforms
 
 def _inverse_(y: torch.Tensor, dom: NTTDomain, scale: torch.Tensor) -> None:
-    """The inverse network IN PLACE on y (B, 8, n), natural in, bit-reversed
-    out, each output times `scale`, (8, 1) or (8, n). K5 from
-    NTT_BLOCK_MIN_LOG up (the scale fused into the low = 0 pass), else K3
-    stage by stage (an (8, 1) scale fused into the last stage, an (8, n)
-    one a K1 product after it)."""
+    """The inverse network IN PLACE on y (B, words, n), natural in,
+    bit-reversed out, each output times `scale`, (words, 1) or (words, n).
+    BN254: K5 from NTT_BLOCK_MIN_LOG up (the scale fused into the low = 0
+    pass), else K3 stage by stage (a (8, 1) scale fused into the last stage,
+    an (8, n) one a K1 product after it). The other Fr: K14 stage by stage,
+    a K12 product for an (words, n) scale."""
+    spec = dom.spec
+    lanes = scale.shape[-1] == 1
+    if not spec.bn254:
+        for s in range(dom.log_n, 0, -1):
+            ntt_stage_n(y, dom.stw_inv, 1 << s, True, spec, scale if lanes and s == 1 else None)
+        if not lanes:
+            y.copy_(lb.mont_mul(y, scale, spec))
+        return
     if dom.log_n >= NTT_BLOCK_MIN_LOG:
         for low, k, tcols in reversed(block_passes(dom.log_n)):
             ntt_block(y, dom.stw_inv, low, k, tcols, True, scale if low == 0 else None)
         return
-    lanes = scale.shape[-1] == 1
     for s in range(dom.log_n, 0, -1):
         ntt_stage(y, dom.tw_inv, 1 << s, True, scale if lanes and s == 1 else None)
     if not lanes:
@@ -298,7 +372,14 @@ def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None
     """The forward network IN PLACE on y (B, 8, n), bit-reversed in,
     natural out. With `h_out` (B = 3: A, B, C) it writes
     h = (A B - C) R^2 there instead, fused into K5's last pass (K3: three
-    K1 launches after the stages), and y is scratch."""
+    K1 launches after the stages), and y is scratch. The other Fr: K14
+    stage by stage, without h."""
+    if not dom.spec.bn254:
+        if h_out is not None:
+            raise ValueError("_forward_: h is the BN254 prove's")
+        for s in range(1, dom.log_n + 1):
+            ntt_stage_n(y, dom.stw_fwd, 1 << s, False, dom.spec)
+        return
     if dom.log_n >= NTT_BLOCK_MIN_LOG:
         passes = block_passes(dom.log_n)
         for i, (low, k, tcols) in enumerate(passes):
@@ -314,15 +395,16 @@ def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None
 
 
 def intt_dif(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
-    """Inverse NTT of (B, 8, n), natural input -> BIT-REVERSED output, times
-    1/n. K5 from NTT_BLOCK_MIN_LOG up, else K3."""
+    """Inverse NTT of (B, words, n), natural input -> BIT-REVERSED output,
+    times 1/n. BN254: K5 from NTT_BLOCK_MIN_LOG up, else K3; the other Fr:
+    K14."""
     y = x.clone().contiguous()
     _inverse_(y, dom, dom.n_inv_mont)
     return y
 
 
 def ntt_dit(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
-    """Forward NTT of (B, 8, n), BIT-REVERSED input -> natural output."""
+    """Forward NTT of (B, words, n), BIT-REVERSED input -> natural output."""
     y = x.clone().contiguous()
     _forward_(y, dom)
     return y
@@ -378,25 +460,28 @@ def get_root_of_unity(log_n: int, root_tower=None) -> int:
     return tower[log_n]
 
 
-def get_domain(log_n: int, device) -> NTTDomain:
-    """The NTTDomain of 2^log_n on `device`, built once and kept."""
-    key = (log_n, str(torch.device(device)))
+def get_domain(log_n: int, device, spec=None, root_tower=None) -> NTTDomain:
+    """The NTTDomain of 2^log_n over `spec` (default BN254 Fr) on `device`,
+    built once and kept by (log_n, spec name, device), as the JAX
+    get_domain by (log_n, spec name)."""
+    spec = spec or FR_SPEC
+    key = (log_n, spec.name, str(torch.device(device)))
     if key not in _DOMAINS:
-        _DOMAINS[key] = NTTDomain(log_n, torch.device(device))
+        _DOMAINS[key] = NTTDomain(log_n, torch.device(device), spec, root_tower)
     return _DOMAINS[key]
 
 
-def initialize_domain(log_n: int, device=None) -> NTTDomain:
-    """Build (or find) the domain of 2^log_n on `device`, by default the
-    runtime's default device (ICICLE's initialize_domain)."""
-    return get_domain(log_n, default_device() if device is None else device)
+def initialize_domain(log_n: int, device=None, spec=None, root_tower=None) -> NTTDomain:
+    """Build (or find) the domain of 2^log_n over `spec` on `device`, by
+    default the runtime's default device (ICICLE's initialize_domain)."""
+    return get_domain(log_n, default_device() if device is None else device, spec, root_tower)
 
 
 def release_domain(log_n: int | None = None, device=None):
     """Drop the kept domains (of one size and device, or all of them)."""
     for key in list(_DOMAINS):
         if (log_n is None or key[0] == log_n) and (
-                device is None or key[1] == str(torch.device(device))):
+                device is None or key[2] == str(torch.device(device))):
             del _DOMAINS[key]
 
 
@@ -405,8 +490,10 @@ def ntt(x: torch.Tensor, inverse: bool = False, cfg=None, spec=None) -> torch.Te
     orderings, arbitrary coset generators and columns_batch
     (icicle_snark_tpu/ops/ntt.py ntt).
 
-    x: (8, n) one vector, (B, 8, n) a row batch, or, with cfg.columns_batch,
-    (n, 8, B) a column batch; Montgomery-form Fr values on any device.
+    x: (words, n) one vector, (B, words, n) a row batch, or, with
+    cfg.columns_batch, (n, words, B) a column batch; Montgomery-form values
+    of `spec` (default BN254 Fr; the other curves' Fr on K14) on any
+    device.
 
     Semantics (ICICLE's backends):
       * a forward coset NTT evaluates on g<w>: the input, in natural order,
@@ -415,34 +502,34 @@ def ntt(x: torch.Tensor, inverse: bool = False, cfg=None, spec=None) -> torch.Te
         multiplied by g^-i after the transform;
       * R/M orderings permute the named side by the bit reversal (see
         config.Ordering for NM == NR, MN == RN).
-    The transform is `ntt_natural` (K5 from NTT_BLOCK_MIN_LOG up, K3 below),
-    the coset products K1 launches against `powers_mont` tables, the bit
-    reversals gathers."""
+    The transform is `ntt_natural` (K5 from NTT_BLOCK_MIN_LOG up, K3 below;
+    K14 for the other Fr), the coset products K1 (K12) launches against
+    `powers_mont` tables, the bit reversals gathers."""
     cfg = cfg or NTTConfig()
-    if spec is not None and spec != FR_SPEC:
-        raise ValueError("ntt: the domain is BN254 Fr")
-    lb._check(x, "x")
+    spec = spec or FR_SPEC
+    lb._check(x, "x", spec.words)
     squeeze = x.dim() == 2
     if squeeze:
         x = x.unsqueeze(0)
     elif x.dim() != 3:
-        raise ValueError(f"ntt: want (8, n), (B, 8, n) or (n, 8, B), got {tuple(x.shape)}")
+        raise ValueError(f"ntt: want (words, n), (B, words, n) or (n, words, B), "
+                         f"got {tuple(x.shape)}")
     elif cfg.columns_batch:
         x = x.permute(2, 1, 0)  # (n, 8, B) -> (B, 8, n)
     n = x.shape[-1]
     log_n = n.bit_length() - 1
     if n != 1 << log_n:
         raise ValueError(f"NTT size must be a power of two, got {n}")
-    dom = get_domain(log_n, x.device)
+    dom = get_domain(log_n, x.device, spec)
     x = x.contiguous()
     if cfg.ordering in (Ordering.RN, Ordering.RR, Ordering.MN):
         x = x[..., dom.bitrev]  # bring the input to natural order
     if cfg.coset_gen is not None and not inverse:
-        x = lb.mont_mul(x, powers_mont(cfg.coset_gen, log_n, x.device), FR_SPEC)
+        x = lb.mont_mul(x, powers_mont(cfg.coset_gen, log_n, x.device, spec), spec)
     y = ntt_natural(x, dom, inverse=inverse)
     if cfg.coset_gen is not None and inverse:
-        g_inv = pow(cfg.coset_gen, -1, FR_SPEC.modulus)
-        y = lb.mont_mul(y, powers_mont(g_inv, log_n, y.device), FR_SPEC)
+        g_inv = pow(cfg.coset_gen, -1, spec.modulus)
+        y = lb.mont_mul(y, powers_mont(g_inv, log_n, y.device, spec), spec)
     if cfg.ordering in (Ordering.NR, Ordering.RR, Ordering.NM):
         y = y[..., dom.bitrev]
     if squeeze:

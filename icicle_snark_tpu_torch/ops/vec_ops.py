@@ -4,18 +4,22 @@ API parity with ICICLE's VecOps surface and with
 icicle_snark_tpu/ops/vec_ops.py: add / accumulate / sub / mul / div / neg /
 inv, scalar-vector variants, sum and product reductions, mixed-field
 multiply, config-driven batches, and Montgomery conversion. Every function
-takes and returns the port's (..., 8, n) limb-major int32 tensors over the
-chosen field (default Fr), in Montgomery form, and runs on the input's own
-device:
+takes and returns the port's (..., words, n) limb-major int32 tensors over
+the chosen field (default BN254 Fr, 8 words), in Montgomery form, and runs
+on the input's own device:
 
   * add, sub, mul, neg, accumulate, the scalar ops, mixed_mul, the *_cfg
     ops, to_mont and from_mont are one K1 launch (csrc/field_vec.cu) each,
-    a scalar or a base-field vector broadcast by K1's rule;
+    a scalar or a base-field vector broadcast by K1's rule; over the other
+    curves' fields (curves/device.py `curve_specs`) one K12 launch
+    (csrc/field_vec_n.cu) by the same rule;
   * inv is one K9 launch (csrc/field_pow.cu, a^(p-2) per lane; inv(0) = 0),
     div one K9 and one K1;
   * sum_reduce and product_reduce are K10 (csrc/field_reduce.cu): one
     launch over blocks of REDUCE_BLOCK_ELEMS elements of each row, and one
-    more, a block a row, over the blocks' partials when a row has several.
+    more, a block a row, over the blocks' partials when a row has several;
+  * K9 and K10 hold BN254's constants: inv, div and the reductions raise
+    InvalidArgument for any other field, on every device.
 
 For CPU tensors each kernel's plain version runs instead.
 """
@@ -66,25 +70,27 @@ def accumulate(a, b, spec=FR_SPEC):
     return a
 
 
-def _scalar(s: torch.Tensor) -> torch.Tensor:
-    """s: (8,) or (8, 1) -> (8, 1), the constant K1 broadcasts over lanes."""
-    if s.numel() != NLIMB:
-        raise ValueError(f"scalar: want (8,) or (8, 1) limbs, got {tuple(s.shape)}")
-    return s.reshape(NLIMB, 1)
+def _scalar(s: torch.Tensor, spec) -> torch.Tensor:
+    """s: (words,) or (words, 1) -> (words, 1), the constant K1 broadcasts
+    over lanes."""
+    if s.numel() != spec.words:
+        raise ValueError(f"scalar: want ({spec.words},) or ({spec.words}, 1) limbs, "
+                         f"got {tuple(s.shape)}")
+    return s.reshape(spec.words, 1)
 
 
 def scalar_add(s, v, spec=FR_SPEC):
-    """s + v; s (8,) or (8, 1), v (..., 8, n)."""
-    return lb.add_mod(v, _scalar(s), spec)
+    """s + v; s (words,) or (words, 1), v (..., words, n)."""
+    return lb.add_mod(v, _scalar(s, spec), spec)
 
 
 def scalar_sub(s, v, spec=FR_SPEC):
     """s - v (one K1 launch: b - a with the scalar as b)."""
-    return lb.rsub_mod(v, _scalar(s), spec)
+    return lb.rsub_mod(v, _scalar(s, spec), spec)
 
 
 def scalar_mul(s, v, spec=FR_SPEC):
-    return lb.mont_mul(v, _scalar(s), spec)
+    return lb.mont_mul(v, _scalar(s, spec), spec)
 
 
 # ---------------------------------------------------------------- K10
@@ -112,7 +118,8 @@ def field_reduce_plain(op: int, v: torch.Tensor, spec) -> torch.Tensor:
 def field_reduce(op: int, v: torch.Tensor, spec) -> torch.Tensor:
     """Modular sum (op 0) or Montgomery product (op 1) over the last axis of
     (..., 8, n), n >= 1; returns (..., 8, 1), canonical. Two K10 launches,
-    one when a row fits one block."""
+    one when a row fits one block. BN254 fields only."""
+    lb.require_bn254(spec, "field_reduce")
     lb._check(v, "v")
     if op not in (0, 1) or v.shape[-1] < 1:
         raise ValueError(f"field_reduce: want op 0 or 1 and n >= 1, got {op}, n = {v.shape[-1]}")
