@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ops-only    # K9-K11, K4 at small windows, the op surface
     python3 chip_smoke.py --setup-only  # the device setup on K11 and on K1 launches, timed
     python3 chip_smoke.py --curves-only # K12-K14 and the other curves' MSMs and NTTs
+    python3 chip_smoke.py --multichip-only  # K15 and the sharded prove on meshes of this card
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -73,7 +74,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
      a host DFT, the round trip and a coset round trip through
      `ntt(spec=...)` at 2^22, timed; the launches counted are those of the
      driven calls alone;
-  11. print the kernels line, then the result line.
+  11. the sharded prove (parallel/, `multichip_phase`): K15 (the four-step
+     NTT's twiddle pass) against its plain version word for word at every
+     shard shape the proves below give it (2^M over 2, 4 and 8 shards and
+     2^N over 8, the factors in both orders, forward and inverse, 0, 1 and
+     r - 1 among the inputs), timed at each; complex-M proved
+     through `prove_multichip` on meshes of this card repeated D = 2, 4 and
+     8 times and complex-N at D = 8: each deterministic proof equal to the
+     single-device proof byte for byte, each randomized one verified, the
+     launches of each deterministic sharded prove counted alone (K15 among
+     them), its phases (A: R1CS and coset, B: the G1 MSMs, C: G2, host)
+     timed with the peak device memory; then one process joins a
+     torch.distributed group over NCCL at world size 1 with two shards on
+     the card and proves complex-M D = 2 the same way. The shards of one
+     card run one after another: the times are the sharding's overhead;
+  12. print the kernels line, then the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -2085,6 +2100,200 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
     return readings
 
 
+# ---------------------------------------------------------------- phase 11
+
+MESH_SIZES = (2, 4, 8)
+# the kernels every sharded prove of the phase must launch
+SHARDED_KERNELS = ("four_step_twiddle", "ntt_block", "r1cs_rows", "msm_accumulate",
+                   "msm_reduce", "point_add", "field_vec")
+
+
+def check_four_step(rep, rng, dev, cases) -> bool:
+    """K15 against its plain version on the card, word for word, at every
+    shape of the sharded coset evaluation: for each (log_n, d) of `cases`,
+    one shard's (3, n2/d, 8, n1) with the factors of split_logs (the
+    inverse pass's orientation) and swapped (the forward pass's), each
+    forward and inverse, on the first and the last shard; inputs hold 0, 1
+    and r - 1. Timed (CUDA events) at each case's inverse pass, beside its
+    bound; the row's ms and plain ms are those of the first case."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.parallel import ntt_dist
+
+    ok, err, timed = True, 0.0, []
+    for log_n, d in cases:
+        log_n1, log_n2 = ntt_dist.split_logs(log_n, d)
+        flat = random_field(rng, lb.FR_SPEC.modulus, (3 * (1 << log_n) // d,), dev)
+        for l1, l2 in ((log_n1, log_n2), (log_n2, log_n1)):
+            n1, n2 = 1 << l1, 1 << l2
+            x = flat.reshape(8, 3, n2 // d, n1).permute(1, 2, 0, 3).contiguous()
+            for inverse in (False, True):
+                tables = ntt_dist.twiddle_tables(log_n, dev, inverse)
+                for shard in (0, d - 1):
+                    got = ntt_dist.four_step_twiddle(x, tables, shard, d)
+                    want = ntt_dist.four_step_twiddle_plain(x, tables, shard, d)
+                    torch.cuda.synchronize()
+                    err = max(err, max_word_err(got, want))
+                    ok &= torch.equal(got, want)
+        n1, n2 = 1 << log_n1, 1 << log_n2
+        x = flat.reshape(8, 3, n2 // d, n1).permute(1, 2, 0, 3).contiguous()
+        tables = ntt_dist.twiddle_tables(log_n, dev, True)
+        ms = cuda_time(lambda: ntt_dist.four_step_twiddle(x, tables, d - 1, d), 20)
+        # one product an element, one a twiddle (shared by the 3 rows); the
+        # element read and written once, the two power tables read once
+        lanes = x.numel() // 8
+        bnd, by = bound(2 * 32 * lanes + 32 * (tables[0].shape[1] + tables[1].shape[1]),
+                        MULS_PER_MONT * (lanes + lanes // 3))
+        timed.append({"log_n": log_n, "d": d, "shape": list(x.shape), "ms": ms,
+                      "bound_ms": bnd, "bound_by": by})
+        if len(timed) == 1:
+            plain_ms = cuda_time(lambda: ntt_dist.four_step_twiddle_plain(x, tables, d - 1, d), 2)
+            main = {"ms": ms, "bound_ms": bnd, "bound_by": by, "plain_ms": plain_ms,
+                    "timed": f"the inverse twiddle pass of one shard, {tuple(x.shape)}: 2^{log_n}"
+                             f" over {d} shards"}
+        log(f"[kernels] four_step_twiddle 2^{log_n} over {d}, {tuple(x.shape)}: {ms:.4f} ms "
+            f"(bound {bnd:.4f} ms, {by}, {ms / bnd:.2f}x)")
+    rep.add("four_step_twiddle", equal_to_plain=ok, max_abs_err=err, shapes=timed, **main)
+    log(f"[kernels] four_step_twiddle: equal to plain {ok} at {len(cases)} x 2 orientations x 2 "
+        f"directions x 2 shards; plain {main['plain_ms']:.2f} ms at the first")
+    return ok
+
+
+def _sharded_prove(tag, mesh, cache, wtns, single, counts_log, failures) -> dict:
+    """One deterministic sharded prove, counted alone (the per-mesh state
+    built before it), that must equal the single-device proof; then one
+    randomized sharded prove, timed by phase, whose files are returned for
+    the caller to verify."""
+    import torch
+
+    from icicle_snark_tpu_torch.parallel import prove_step
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prove_step.pad_cache_for_mesh(cache, mesh)
+    torch.cuda.synchronize()
+    parts_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    got = counted(counts_log.setdefault(tag, {}),
+                  lambda: prove_step.prove_multichip(mesh, wtns, cache, deterministic=True))
+    same = got == single
+    if not same:
+        failures.append(f"{tag}: the sharded proof differs from the single-device proof")
+    for k in SHARDED_KERNELS:
+        if not counts_log[tag].get(k):
+            failures.append(f"{tag} did not launch {k}")
+    timer = pipeline.PhaseTimer(mesh.local_devices[0])
+    t0 = time.perf_counter()
+    proof, public = prove_step.prove_multichip(mesh, wtns, cache, timer=timer)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    host = sum(v for k, v in timer.phases.items() if not k.startswith("phase_"))
+    out = {"mesh_parts_s": parts_s, "same_as_single": same, "prove_s": secs,
+           "phases_s": timer.phases, "host_s": host, "peak_gb": peak,
+           "launches": counts_log[tag], "proof": proof, "public": public}
+    log(f"[multichip] {tag}: byte-identical to the single-device proof {same}; randomized "
+        f"prove {secs:.3f} s, phases " + json.dumps({k: round(v, 4) for k, v in
+                                                     timer.phases.items()})
+        + f", host {host:.4f} s, peak {peak:.2f} GB, per-mesh state {parts_s:.2f} s; launches "
+        + json.dumps({k: v for k, v in counts_log[tag].items() if v}))
+    return out
+
+
+def _verifies(result, directory, vk) -> bool:
+    from icicle_snark_tpu_torch.prover import api
+
+    proof_path, public_path = (os.path.join(directory, f) for f in ("mc_proof.json",
+                                                                     "mc_public.json"))
+    with open(proof_path, "w") as fh:
+        json.dump(result.pop("proof"), fh)
+    with open(public_path, "w") as fh:
+        json.dump(result.pop("public"), fh)
+    return api.groth16_verify(proof_path, public_path, vk)
+
+
+def multichip_phase(rep, rng, dev, big, cache_big, small, counts_log, failures) -> dict:
+    """The sharded prove (parallel/) on meshes of this one card repeated:
+    K15 against its plain version; complex-M through `prove_multichip` at
+    D = 2, 4 and 8 and complex-N at D = 8, each deterministic proof equal
+    to the single-device proof and each randomized one verified; one
+    process over NCCL at world size 1 holding two shards (the collectives
+    of torch.distributed). The shards of one card run one after another,
+    so the times measure the sharding's overhead, not scaling."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from icicle_snark_tpu_torch.parallel import mesh as pmesh
+    from icicle_snark_tpu_torch.prover import pipeline
+    from icicle_snark_tpu_torch.prover.cache import load_zkey_cache
+
+    t0 = time.perf_counter()
+    readings = {}
+    if dev.type == "cuda":  # the mesh names each shard's card by its index
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cache_small = load_zkey_cache(small["zkey"], dev)
+    # every shape the phase's proves give K15, the one timed first at D = 4
+    cases = [(cache_big.header.power, d) for d in sorted(MESH_SIZES, key=lambda d: d != 4)]
+    if not check_four_step(rep, rng, dev, cases + [(cache_small.header.power, 8)]):
+        failures.append("kernel four_step_twiddle differs from its plain version")
+    single_big = pipeline.prove(big["wtns"], cache_big, deterministic=True)
+    timer = pipeline.PhaseTimer(dev)  # a warm randomized single-device prove, for comparison
+    pipeline.prove(big["wtns"], cache_big, timer=timer)
+    readings["single_device_phases_s"] = timer.phases
+    log("[multichip] single-device prove, warm: phases "
+        + json.dumps({k: round(v, 4) for k, v in timer.phases.items()}))
+    runs = [(f"complex-{cache_big.header.n_vars - 3} D={d}", [dev] * d, cache_big, big,
+             single_big) for d in MESH_SIZES]
+    single_small = pipeline.prove(small["wtns"], cache_small, deterministic=True)
+    runs.append((f"complex-{cache_small.header.n_vars - 3} D=8", [dev] * 8, cache_small, small,
+                 single_small))
+    for tag, devices, cache, paths, single in runs:
+        res = _sharded_prove(f"multichip {tag}", pmesh.make_mesh(devices), cache, paths["wtns"],
+                             single, counts_log, failures)
+        res["verifies"] = _verifies(res, os.path.dirname(paths["zkey"]), paths["vk"])
+        if not res["verifies"]:
+            failures.append(f"multichip {tag}: the randomized sharded proof does not verify")
+        readings[tag] = res
+        cache.mesh_parts.clear()
+        torch.cuda.empty_cache()
+    del cache_small
+    # one process over NCCL, world size 1, two shards on the card
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "RANK": "0", "WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh = pmesh.make_mesh([dev, dev])
+        if not (mesh.distributed and dist.get_backend() == "nccl"):
+            failures.append("the NCCL mesh did not join a torch.distributed group")
+        tag = f"complex-{cache_big.header.n_vars - 3} D=2 over NCCL"
+        res = _sharded_prove(f"multichip {tag}", mesh, cache_big, big["wtns"], single_big,
+                             counts_log, failures)
+        res["verifies"] = _verifies(res, os.path.dirname(big["zkey"]), big["vk"])
+        if not res["verifies"]:
+            failures.append(f"multichip {tag}: the randomized sharded proof does not verify")
+        readings[tag] = res
+        cache_big.mesh_parts.clear()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    readings["phase_s"] = time.perf_counter() - t0
+    log(f"[multichip] phase in {readings['phase_s']:.1f} s (the shards of one card run one "
+        "after another: the times are the sharding's overhead, not scaling)")
+    return readings
+
+
 # ---------------------------------------------------------------- profile
 
 # the device functions of each kernel of kernels.ALL
@@ -2100,6 +2309,7 @@ KERNEL_FUNCTIONS = {
     # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>)
     "msm_accumulate_n": ("msm_accumulate_kernel<EF",),
     "msm_reduce_n": ("msm_reduce_segments_kernel<EF", "msm_reduce_rows_kernel<EF"),
+    "four_step_twiddle": ("four_step_twiddle_kernel",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -2337,6 +2547,39 @@ def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict
     return out
 
 
+def multichip_only(args, dev, rng, card) -> int:
+    """--multichip-only: the fixtures (made unless --fixture-dir holds them),
+    then `multichip_phase` with K15's row; writes chip_smoke_multichip.json
+    into OUT_DIR."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.prover import api
+
+    t0 = time.perf_counter()
+    _, small = make_fixture(os.path.join(args.fixture_dir, f"torch_complex_{args.constraints}"),
+                            args.constraints, dev)
+    _, big = make_fixture(os.path.join(args.fixture_dir,
+                                       f"torch_complex_{args.large_constraints}"),
+                          args.large_constraints, dev)
+    log(f"[multichip] fixtures in {time.perf_counter() - t0:.1f} s")
+    cache_big = api.CacheManager("cuda").get(big["zkey"])
+    rep, counts, failures = Report(), {}, []
+    warm_card(dev)
+    readings = multichip_phase(rep, rng, dev, big, cache_big, small, counts, failures)
+    k = kernels.FOUR_STEP
+    ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
+    rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+             "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
+             "library_ms": None, **rep.rows.get(k.name, {})}]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_multichip.json"), "w") as fh:
+        json.dump({"card": card, "multichip": readings, "path_counts": counts, "kernels": rows,
+                   "failures": failures, "total_s": time.perf_counter() - t0}, fh, indent=1)
+    print(json.dumps({"kernels": rows}), flush=True)
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def curves_only(dev, rng, card) -> int:
     """--curves-only: the build's register lines, then `curves_phase` with
     its kernel rows; writes chip_smoke_curves.json into OUT_DIR."""
@@ -2389,6 +2632,10 @@ def main() -> int:
     ap.add_argument("--curves-only", action="store_true",
                     help="build, check K12-K14 against their plain versions, drive the other "
                          "curves' MSMs, msm() and NTTs, and stop")
+    ap.add_argument("--multichip-only", action="store_true",
+                    help="build, check K15 against its plain version, prove complex-M at D = 2, "
+                         "4 and 8 and complex-N at D = 8 on meshes of this card, one process "
+                         "over NCCL, and stop")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -2429,6 +2676,8 @@ def main() -> int:
         return setup_routes(args, dev)
     if args.curves_only:
         return curves_only(dev, rng, card)
+    if args.multichip_only:
+        return multichip_only(args, dev, rng, card)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
@@ -2697,7 +2946,10 @@ def main() -> int:
     curves = curves_phase(rep, rng, dev, path_counts, failures)
     log(f"[curves] phase in {curves['phase_s']:.1f} s")
 
-    # ---- 11. report: a kernel's launches are those of the first driven path
+    # ---- 11. the sharded prove on meshes of this card
+    multi = multichip_phase(rep, rng, dev, big, cache_big, paths, path_counts, failures)
+
+    # ---- 12. report: a kernel's launches are those of the first driven path
     # that ran it (each path was driven with the counts set to 0 before it)
     rows = []
     for k in kernels.ALL:
@@ -2736,7 +2988,7 @@ def main() -> int:
                   "deterministic_variants": variants, "msm_plan_ms": big_plan_ms,
                   "bits_prove": bits_big, "msm_bits": bits_timing, "k4_sweep": sweep_k4,
                   "ntt_block": rep.rows.get(kernels.NTT_BLOCK.name)},
-        "probe": probe_rows, "multiply_rate": mul_rate, "curves": curves,
+        "probe": probe_rows, "multiply_rate": mul_rate, "curves": curves, "multichip": multi,
         "path_counts": path_counts,
         "failures": failures, "total_s": time.perf_counter() - t_all, "kernels": rows,
     }

@@ -166,6 +166,8 @@ _SIGNATURES = {
     "snark_msm_reduce_n": [_I, _I, _I, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
     # field, x, tw (stage-major), scale, batch, n, m, inverse, stream
     "snark_ntt_stage_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
+    # out, x, tlo, thi, batch, n1, n2_loc, d, shard, s_log, stream
+    "snark_four_step": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _VP],
 }
 
 
@@ -260,10 +262,15 @@ NTT_N = Kernel(
     "ntt_stage_n", "snark_ntt_stage_n", "icicle_snark_tpu_torch/csrc/ntt_n.cu",
     "icicle_snark_tpu/ops/ntt.py:180",
 )
+# The sharded prove (parallel/)
+FOUR_STEP = Kernel(
+    "four_step_twiddle", "snark_four_step", "icicle_snark_tpu_torch/csrc/four_step.cu",
+    "icicle_snark_tpu/parallel/ntt_dist.py:70",
+)
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
        FIELD_POW, FIELD_REDUCE, FIXED_BASE,
-       FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N)
+       FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP)
 
 
 def reset_counts():

@@ -1,0 +1,44 @@
+"""The MSM over a device mesh (kernels K4 and K6).
+
+The port's counterpart of icicle_snark_tpu/parallel/msm_shard.py: each
+shard runs the grouped Pippenger window sums (ops/msm.py, K4; sliced with
+K6 between slices past max_lanes) over its own lanes, the window sums of
+all shards are gathered and added pairwise in shard order with K6. The
+order is fixed, so the result is the same at any mesh size and in every
+process.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import msm as msm_ops
+from .mesh import on_device
+
+
+def combine_windows(mesh, ws: list) -> torch.Tensor:
+    """Every shard's window sums (3, coords..., G, W), gathered and added
+    pairwise in shard order with K6: the mesh's total, on this process's
+    first device."""
+    pts = mesh.all_gather(ws)
+    with on_device(pts[0].device):
+        while len(pts) > 1:
+            nxt = [msm_ops.acc_windows(pts[i], pts[i + 1]) for i in range(0, len(pts) - 1, 2)]
+            pts = nxt + pts[len(pts) - len(pts) % 2:]
+    return pts[0]
+
+
+def msm_window_sums_local(mesh, scalars: list, widths, records: list, c: int, max_lanes: int,
+                          pre: int = 1) -> torch.Tensor:
+    """Grouped window sums over the mesh: per local shard, scalars (8,
+    sum(widths)) and its K4 records (the lanes of each group concatenated,
+    `pre` rows a lane), in core or sliced past max_lanes point lanes; then
+    `combine_windows`. Returns (3, coords..., len(widths), W)."""
+    ws = []
+    for sc, rec, dev in zip(scalars, records, mesh.local_devices):
+        with on_device(dev):
+            if sc.shape[-1] * pre > max_lanes:
+                ws.append(msm_ops.msm_windows_sliced(sc, widths, rec, c, max_lanes, pre))
+            else:
+                ws.append(msm_ops.msm_window_sums(sc, widths, rec, c, pre))
+    return combine_windows(mesh, ws)

@@ -33,16 +33,7 @@ from ..io.zkey import ZKeyFile, ZKeyHeader
 from ..ops import msm as msm_ops
 from ..ops.ntt import NTTDomain, powers_mont
 from ..refmath.field import W
-
-
-def require_device(device) -> torch.device:
-    """The device the caller asked for; raises when it is CUDA and no card
-    is present (entry points never fall back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: pass device='cpu' to run the plain versions")
-    return dev
+from ..runtime import require_device
 
 
 @dataclass
@@ -80,6 +71,9 @@ class ZKeyCache:
     g1_sizes: list = field(init=False)    # scalar lanes of each G1 group
     # keys[:, bitrev] * n^-1 (Montgomery): K5's last inverse pass multiplies by it
     keys_br_scaled: torch.Tensor = field(init=False)
+    # the sharded prove's per-shard state by mesh (parallel/prove_step.py
+    # pad_cache_for_mesh), built at its first prove on that mesh
+    mesh_parts: dict = field(init=False, default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self, keys):
         dom = self.domain

@@ -225,14 +225,9 @@ class PhaseTimer:
         self._t = now
 
 
-def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=None,
-          timer: PhaseTimer | None = None):
-    """Full prove from a witness file against a warm cache; returns
-    (proof_dict, public_signals). Randomization and assembly run on the
-    host (proof_helper.rs:274-295)."""
-    device = cache.keys_br_scaled.device
-    timer = timer or PhaseTimer(device)
-    hdr = cache.header
+def read_witness(wtns_path: str, hdr, device):
+    """The witness file checked against the proving key's header: returns
+    (WtnsFile, (8, n_vars) standard-form limbs on `device`)."""
     wtns = WtnsFile(wtns_path)
     if wtns.header.q != hdr.r:
         raise ValueError("witness curve does not match proving key")
@@ -240,14 +235,16 @@ def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=Non
         raise ValueError(
             f"invalid witness length: circuit {hdr.n_vars}, witness {wtns.header.n_witness}"
         )
-    witness = lb.words_to_limbs(wtns.witness_limbs(), device)  # (8, n_vars) standard
-    timer.mark("witness_ingest")
+    return wtns, lb.words_to_limbs(wtns.witness_limbs(), device)
 
-    h_scalars = construct_r1cs(witness, cache)
-    timer.mark("r1cs_ntt")
-    pi_a, pi_b1, pi_b, pi_c, pi_h = groth16_commitments(witness, h_scalars, cache)
-    timer.mark("msm")
 
+def assemble_proof(hdr, wtns: WtnsFile, commitments, deterministic: bool, rng,
+                   timer: PhaseTimer):
+    """Randomization and assembly on the host (proof_helper.rs:274-295):
+    the five MSM results (pi_a, pi_b1, pi_b, pi_c, pi_h) as host projective
+    points -> (proof_dict, public_signals); `timer` takes the phases
+    randomize_assemble and serialize."""
+    pi_a, pi_b1, pi_b, pi_c, pi_h = commitments
     alpha1 = cv.g1_from_affine(hdr.vk_alpha_1)
     beta1 = cv.g1_from_affine(hdr.vk_beta_1)
     delta1 = cv.g1_from_affine(hdr.vk_delta_1)
@@ -274,3 +271,20 @@ def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=Non
     public_signals = [str(v) for v in wtns.witness_ints(1, hdr.n_public)]
     timer.mark("serialize")
     return serialize_proof(pi_a, pi_b, pi_c), public_signals
+
+
+def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=None,
+          timer: PhaseTimer | None = None):
+    """Full prove from a witness file against a warm cache; returns
+    (proof_dict, public_signals). Randomization and assembly run on the
+    host (proof_helper.rs:274-295)."""
+    device = cache.keys_br_scaled.device
+    timer = timer or PhaseTimer(device)
+    wtns, witness = read_witness(wtns_path, cache.header, device)  # (8, n_vars) standard
+    timer.mark("witness_ingest")
+
+    h_scalars = construct_r1cs(witness, cache)
+    timer.mark("r1cs_ntt")
+    commitments = groth16_commitments(witness, h_scalars, cache)
+    timer.mark("msm")
+    return assemble_proof(cache.header, wtns, commitments, deterministic, rng, timer)

@@ -61,6 +61,16 @@ def default_device() -> torch.device:
     return _default
 
 
+def require_device(device) -> torch.device:
+    """The device the caller asked for; raises when it is CUDA and no card
+    is present (entry points never fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the plain versions")
+    return dev
+
+
 @dataclass
 class DeviceProperties:
     """ICICLE's DeviceProperties (icicle_get_device_properties)."""

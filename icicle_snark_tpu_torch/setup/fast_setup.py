@@ -24,10 +24,10 @@ from .. import kernels
 from ..curve import jcurve as jc
 from ..fields import limbs as lb
 from ..ops.msm import point_records
-from ..prover.cache import require_device
 from ..prover.pipeline import PhaseTimer
 from ..refmath import curve as cv
 from ..refmath.field import fq_to_mont
+from ..runtime import require_device
 from .r1cs import R1CS
 from .trusted_setup import FixedBase, SetupScalars, ToxicWaste, _fixed_bases, write_zkey
 
