@@ -6,8 +6,9 @@
     python3 chip_smoke.py --r1cs-only   # construct_r1cs, the r1cs_ntt phase, the K5 pair
     python3 chip_smoke.py --ops-only    # K9-K11, K4 at small windows, the op surface
     python3 chip_smoke.py --setup-only  # the device setup on K11 and on K1 launches, timed
-    python3 chip_smoke.py --curves-only # K12-K14 and the other curves' MSMs and NTTs
+    python3 chip_smoke.py --curves-only # K12-K14, K16, K17: the other curves' MSMs, NTTs, vec-ops
     python3 chip_smoke.py --multichip-only  # K15 and the sharded prove on meshes of this card
+    python3 chip_smoke.py --precompute-only # K7 and K11 against plain, timed, with registers
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -19,7 +20,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
   3. hold every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs at the main path's shapes plus edge values
      (0, 1, p-1; the identity, P+P, P+(-P)); time both with CUDA events
-     (K1-K4, K7 at complex-N shapes, K4 at every lane of both MSMs; K5, K6
+     (K1-K4, K7 at complex-N shapes (G2 on a pair of threads a lane, with
+     its registers), K4 at every lane of both MSMs; K5, K6
      and K4 once more at the large circuit's shapes in phase 7; K9-K11 in
      phase 6; K8 at the probe's);
   4. the coset evaluation (K2 rows, then K5's passes with the keys and h
@@ -72,8 +74,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
      itself at 2^16 lanes from host lists; K14 (ntt_stage_n) over the three
      Fr: the pair against the plain stages at 2^12 and at 2^22, 2^4 against
      a host DFT, the round trip and a coset round trip through
-     `ntt(spec=...)` at 2^22, timed; the launches counted are those of the
-     driven calls alone;
+     `ntt(spec=...)` at 2^22, timed; K16 (field_pow_n) on the five fields
+     word for word against its plain version (the inverse over 2^24, 2^22
+     and 2^20 lanes at 8, 12 and 24 words, the plain version on 2^12; other
+     exponents, one wider than the kernel's 768 bits; div), timed; K17
+     (field_reduce_n): the sum over a 2^24 row at every field and the
+     product at the two 8-word Fr, with odd, single, batched and all-(p-1)
+     rows, timed; inv, div, sum_reduce and product_reduce driven over each
+     field and held against compositions; the launches counted are those of
+     the driven calls alone;
   11. the sharded prove (parallel/, `multichip_phase`): K15 (the four-step
      NTT's twiddle pass) against its plain version word for word at every
      shard shape the proves below give it (2^M over 2, 4 and 8 shards and
@@ -1093,11 +1102,24 @@ def check_acc_windows(rep, rng, cache, dev):
     return ok
 
 
-def check_precompute(rep, rng, cache, dev, c: int = 13, factor: int = 4):
-    """K7's two kernels at the G2 shape of the key for the plan (c, f):
-    each against its plain version word for word (with the identity and a
-    doubled point among the lanes), and `precompute_bases` (both kernels)
-    against host integers on the first lanes."""
+def kernel_usage(source: str, fragment: str) -> str:
+    """The build's registers, stack and spills of the kernels of `source`
+    whose entry name holds `fragment`, as one line."""
+    return "; ".join(
+        f"{name}: {u.get('registers')} registers, stack {u.get('stack')} B, spills "
+        f"{u.get('spill_stores')}/{u.get('spill_loads')} B"
+        for name, u in sorted(ptxas_usage().items())
+        if u.get("source") == source and fragment in name) or "not in the build log"
+
+
+def check_precompute(rep, rng, points, dev, c: int = 13, factor: int = 4):
+    """K7's two kernels at the shape of the key's G1 and G2 points (`points`:
+    the (x, y) of G1 and of G2) for the plan (c, f): each against its plain
+    version word for word (with the identity and a doubled point among the
+    lanes), the G2 kernels timed with their registers, and
+    `precompute_bases` (both kernels) against host integers on the first G2
+    lanes. G2's doublings run on a pair of threads a lane
+    (csrc/curve_pair.cuh)."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -1112,7 +1134,7 @@ def check_precompute(rep, rng, cache, dev, c: int = 13, factor: int = 4):
     for g2 in (False, True):
         ops, plain = (jc.G2, jc.G2_PLAIN) if g2 else (jc.G1, jc.G1_PLAIN)
         tag = "g2" if g2 else "g1"
-        x, y = cache.points_b2 if g2 else cache.points_a
+        x, y = points[g2]
         n = x.shape[-1]
         x, y = x.clone(), y.clone()
         x[..., 0] = 0
@@ -1139,15 +1161,19 @@ def check_precompute(rep, rng, cache, dev, c: int = 13, factor: int = 4):
         # z^-1: the norm (2 products), 254 squarings + 110 products, 2 to
         # finish the Fq2 inverse; then x z^-1 and y z^-1 (3 products each)
         b_aff = bound(n * 5 * 64, n * (2 + 364 + 2 + 6) * MULS_PER_MONT)
+        usage = kernel_usage("precompute.cu", "point_dbl_k")
+        log(f"  point_dbl_k g2, {n} lanes, k = {shift}: {dbl_ms:.3f} ms (bound {b_dbl[0]:.3f}, "
+            f"{b_dbl[1]}; plain {dbl_plain:.0f} ms); {usage}")
         rep.add(kernels.POINT_DBL_K.name, equal_to_plain=err_dbl == 0, max_abs_err=err_dbl,
                 ms=dbl_ms, plain_ms=dbl_plain, bound_ms=b_dbl[0], bound_by=b_dbl[1],
-                timed=f"g2, {n} lanes, k = {shift} doublings (plan c {c}, f {factor})")
+                timed=f"g2, {n} lanes, k = {shift} doublings (plan c {c}, f {factor})",
+                build=usage)
         rep.add(kernels.POINT_TO_AFFINE.name, equal_to_plain=err_aff == 0 and inf_ok,
                 max_abs_err=err_aff, ms=aff_ms, plain_ms=aff_plain, bound_ms=b_aff[0],
                 bound_by=b_aff[1], timed=f"g2, {n} lanes")
     # both kernels through precompute_bases, against host integers
     lanes = 6
-    x, y = (t[..., :lanes].clone() for t in cache.points_b2)
+    x, y = (t[..., :lanes].clone() for t in points[True])
     x[..., 1] = 0
     y[..., 1] = 0
     pre = msm.precompute_bases((x, y), jc.G2, c, factor)
@@ -1324,7 +1350,8 @@ def check_fixed_base(rep, rng, dev, fbs, tables, lanes: int = 1 << 18):
     below r with 0, 1, r - 1 and 2^256 - 1 (every digit 255) among them;
     the first lanes made affine (K7) against host scalar multiples. Timed
     beside the plain version and the route the setup took before K11 (the
-    plain scan over K1 launches). The row sums G1 and G2."""
+    plain scan over K1 launches), with the build's registers and spills of
+    both kernels. The row sums G1 and G2."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -1378,8 +1405,11 @@ def check_fixed_base(rep, rng, dev, fbs, tables, lanes: int = 1 << 18):
                      f"K1-launch scan {k1_ms:.1f})")
         del got, want
         torch.cuda.empty_cache()
+    usage = kernel_usage("fixed_base.cu", "")
+    log(f"  fixed_base_msm build: {usage}")
     rep.add(kernels.FIXED_BASE.name, equal_to_plain=ok, max_abs_err=worst, bound_by="operations",
-            timed=f"one setup chunk of {lanes} lanes, G1 + G2: " + "; ".join(parts), **row)
+            timed=f"one setup chunk of {lanes} lanes, G1 + G2: " + "; ".join(parts), build=usage,
+            **row)
     return ok
 
 
@@ -1682,6 +1712,18 @@ def random_field_n(gen, spec, shape, dev, edges: bool = True):
     return x
 
 
+# K16's lanes by words: the inverse timed over 2^24, 2^22 and 2^20 elements
+POW_N_LANES = {8: 1 << 24, 12: 1 << 22, 24: 1 << 20}
+
+
+def kernel_field_specs() -> list:
+    """The five fields of K12, K16 and K17, in the kernels' selector order
+    (curves/device.py KERNEL_FIELDS)."""
+    from icicle_snark_tpu_torch.curves import device as cdev
+
+    return [cdev.curve_specs(c)[0 if f == "q" else 1] for c, f in cdev.KERNEL_FIELDS]
+
+
 def check_field_vec_n(rep, gen, dev, n: int = 1 << 24, n_plain: int = 1 << 16) -> tuple:
     """K12 against its plain version word for word on every op and field at
     n_plain lanes (0, 1, p - 1 among them; b equal to a in some lanes; b
@@ -1689,13 +1731,9 @@ def check_field_vec_n(rep, gen, dev, n: int = 1 << 24, n_plain: int = 1 << 16) -
     import torch
 
     from icicle_snark_tpu_torch import kernels
-    from icicle_snark_tpu_torch.curves import device as cdev
     from icicle_snark_tpu_torch.fields import limbs as lb
 
-    specs = []
-    for name in CURVES:
-        fq, fr = cdev.curve_specs(name)
-        specs += [s for s in (fr, fq) if s.modulus not in [t.modulus for t in specs]]
+    specs = kernel_field_specs()
     ok, fields = True, {}
     for spec in specs:
         a = random_field_n(gen, spec, (2, n_plain), dev)
@@ -2043,6 +2081,166 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
     return ok, out
 
 
+def check_field_pow_n(rep, gen, dev, lanes=None, n_plain: int = 1 << 12) -> tuple:
+    """K16 against its plain version word for word on the five fields: the
+    inverse (a^(p-2); 0, 1 and p - 1 among the inputs) over POW_N_LANES
+    lanes, the plain version on the first n_plain; the exponents 0, 1, 2
+    and 5 on 256 lanes, and (p - 2) + (p - 1) 2^800, wider than the
+    kernel's 768 bits (fields/limbs.py kernel_exponent reduces it to p - 2),
+    against the plain inverse; div(x, a) against x times the plain inverse
+    on n_plain lanes. The inverse timed beside its bound."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+
+    lanes = lanes or POW_N_LANES
+    ok, worst, fields = True, 0.0, {}
+    for spec in kernel_field_specs():
+        w, p = spec.words, spec.modulus
+        n = lanes[w]
+        a = random_field_n(gen, spec, (n,), dev)
+        got = lb.mont_inv(a, spec)
+        want, plain_ms = timed_once(lambda: lb.field_pow_plain(a[:, :n_plain].contiguous(),
+                                                              p - 2, spec))
+        err = max_word_err(got[:, :n_plain], want)
+        zero_ok = bool(lb.is_zero(got[:, :1]).all())
+        m = min(256, n_plain)
+        sub = a[:, :m].contiguous()
+        err_e = max(max_word_err(lb.mont_pow_const(sub, e, spec), lb.field_pow_plain(sub, e, spec))
+                    for e in (0, 1, 2, 5))
+        wide = (p - 2) + ((p - 1) << 800)
+        err_e = max(err_e, max_word_err(lb.mont_pow_const(sub, wide, spec), want[:, :m]))
+        x = random_field_n(gen, spec, (n_plain,), dev)
+        # a holds 0 in lane 0: x / 0 = 0
+        err_div = max_word_err(vo.div(x, a[:, :n_plain].contiguous(), spec),
+                               lb.field_op_plain(lb.OP_MUL, x, want, spec))
+        ms = cuda_time(lambda: lb.mont_inv(a, spec), 3)
+        # square-and-multiply from the top bit, the first square (of one) left out
+        steps = (p - 2).bit_length() + bin(p - 2).count("1") - 1
+        bms, by = bound(n * 8 * w, n * steps * muls_per_product(w))
+        fine = err == 0 and err_e == 0 and err_div == 0 and zero_ok
+        ok &= fine
+        worst = max(worst, err, err_e, err_div)
+        fields[spec.name] = dict(words=w, lanes=n, plain_lanes=n_plain, equal_to_plain=fine,
+                                 inv_ms=ms, bound_ms=bms, bound_by=by, plain_ms=plain_ms,
+                                 products=steps)
+        log(f"  field_pow_n {spec.name} ({w} words): inverse over {n} lanes max word err {err} "
+            f"(plain on {n_plain}), inv(0) = 0 {zero_ok}; exponents 0, 1, 2, 5, (p - 2) + (p - 1) "
+            f"2^800 on {m} lanes: max word err {err_e}; div on {n_plain}: max word err {err_div}; "
+            f"inverse {ms:.3f} ms (bound {bms:.3f}, {by}: {steps} products a lane), plain "
+            f"{plain_ms:.0f} ms on {n_plain} lanes")
+        del a, got, want, x
+        torch.cuda.empty_cache()
+    widest = fields[kernel_field_specs()[-1].name]
+    usage = kernel_usage("field_pow_n.cu", "")
+    log(f"  field_pow_n build: {usage}")
+    rep.add(kernels.FIELD_POW_N.name, equal_to_plain=ok, max_abs_err=worst,
+            ms=widest["inv_ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
+            bound_by=widest["bound_by"], build=usage, by_field=fields,
+            timed=f"bw6_761_fq inverse (vec_ops.inv) over {widest['lanes']} lanes (plain on "
+                  f"{widest['plain_lanes']}); every field under by_field")
+    return ok, fields
+
+
+def check_field_reduce_n(rep, gen, dev, n: int = 1 << 24) -> tuple:
+    """K17 against its plain version word for word: the sum over one row of
+    n at the five fields and the product at the two 8-word Fr, then on an
+    odd row (n - 3), n = 1, a (2, 3, 4097) batch and rows of p - 1 only;
+    the row of n timed beside its bound."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+
+    ok, worst, fields = True, 0.0, {}
+    for spec in kernel_field_specs():
+        w = spec.words
+        ops = (0, 1) if w == lb.NLIMB else (0,)
+        full = random_field_n(gen, spec, (n,), dev)
+        top = lb.const(spec.modulus - 1, dev, 5000, w)
+        cases = [("row of n", full), ("odd row", full[:, 3:].contiguous()),
+                 ("n = 1", full[:, :1].contiguous()),
+                 ("2-D batch", random_field_n(gen, spec, (2, 3, 4097), dev)),
+                 ("p - 1 only", torch.stack([top, top]))]
+        reading = {}
+        for op in ops:
+            name = "product" if op else "sum"
+            for label, v in cases:
+                got = vo.field_reduce(op, v, spec)
+                want, ms_p = timed_once(lambda: vo.field_reduce_plain(op, v, spec))
+                err = max_word_err(got, want)
+                worst = max(worst, err)
+                ok &= err == 0 and got.shape == v.shape[:-1] + (1,)
+                if label == "row of n":
+                    reading[f"{name}_err"] = err
+                    reading[f"{name}_plain_ms"] = ms_p
+            ms = cuda_time(lambda: vo.field_reduce(op, full, spec), 10)
+            b = bound(n * 4 * w + 4 * w, (n - 1) * muls_per_product(w) if op else 0)
+            reading.update({f"{name}_ms": ms, f"{name}_bound_ms": b[0],
+                            f"{name}_bound_by": b[1]})
+            log(f"  field_reduce_n {spec.name} ({w} words) {name}: max word err "
+                f"{reading[f'{name}_err']} over a row of {n} (and on the odd row, n = 1, the "
+                f"batch, p - 1 only: max {worst}); {ms:.4f} ms (bound {b[0]:.4f}, {b[1]}), "
+                f"plain {reading[f'{name}_plain_ms']:.1f} ms")
+        fields[spec.name] = dict(words=w, n=n, **reading)
+        del full, cases
+        torch.cuda.empty_cache()
+    head = fields[kernel_field_specs()[2].name]  # bls12-381 Fr: both ops
+    usage = kernel_usage("field_reduce_n.cu", "")
+    log(f"  field_reduce_n build: {usage}")
+    rep.add(kernels.FIELD_REDUCE_N.name, equal_to_plain=ok, max_abs_err=worst,
+            ms=head["sum_ms"] + head["product_ms"],
+            plain_ms=head["sum_plain_ms"] + head["product_plain_ms"],
+            bound_ms=head["sum_bound_ms"] + head["product_bound_ms"],
+            bound_by=head["product_bound_by"], build=usage, by_field=fields,
+            timed=f"bls12_381_fr sum_reduce + product_reduce over one row of {n}; every field "
+                  f"(the sum at 12 and 24 words) under by_field")
+    return ok, fields
+
+
+def drive_curve_vec_ops(gen, dev, counts_log, lanes=None) -> tuple:
+    """inv, div, sum_reduce and product_reduce over the five fields as a
+    user calls them (ops/vec_ops.py with spec=), at POW_N_LANES elements,
+    each held against a composition computed another way: div(a, a) == 1
+    with div(0, 0) == 0, sum_reduce(a, neg(a)) == 0, and at 8 words
+    product_reduce(v, inv(v)) == 1 (v without the zero). Only these calls
+    are counted (`counted`)."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+
+    lanes = lanes or POW_N_LANES
+    launched = counts_log["curves: vec-ops"] = {}
+    checks = {}
+    for spec in kernel_field_specs():
+        w, n = spec.words, lanes[spec.words]
+        a = random_field_n(gen, spec, (n,), dev)
+        one = lb.one_mont(spec, dev)
+        q = counted(launched, lambda: vo.div(a, a, spec))
+        checks[f"{spec.name} div(a, a) == 1, div(0, 0) == 0"] = bool(
+            torch.equal(q[:, 1:], one.expand(w, n - 1)) and lb.is_zero(q[:, :1]).all())
+        s = counted(launched, lambda: vo.sum_reduce(torch.cat([a, vo.neg(a, spec)], dim=-1),
+                                                    spec))
+        checks[f"{spec.name} sum_reduce(a, neg(a)) == 0"] = bool(lb.is_zero(s[:, None]).all())
+        if w == lb.NLIMB:
+            nz = a[:, 1:].contiguous()
+            pr = counted(launched, lambda: vo.product_reduce(
+                torch.cat([nz, vo.inv(nz, spec)], dim=-1), spec))
+            checks[f"{spec.name} product_reduce(v, inv(v)) == 1"] = torch.equal(pr, one[:, 0])
+        del a, q
+        torch.cuda.empty_cache()
+    for name, val in checks.items():
+        if not val:
+            log(f"  curves vec-ops FAILED: {name}")
+    log(f"  curves vec-ops: {sum(checks.values())} of {len(checks)} checks hold; launches "
+        + json.dumps({k: v for k, v in launched.items() if v}))
+    return all(checks.values()), checks
+
+
 def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> dict:
     """The other curves (bls12-377, bls12-381, bw6-761): K12, K13 and K14
     against their plain versions, then the MSMs, `msm()` and the NTTs driven
@@ -2078,6 +2276,22 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
     if not ok:
         failures.append("a curve NTT differs from its plain version, the DFT or the identity")
     log(f"[kernels] ntt_stage_n and the curve NTTs in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    small_lanes = {8: 1 << 12, 12: 1 << 11, 24: 1 << 10}
+    ok, readings["field_pow_n"] = check_field_pow_n(
+        rep, gen, dev, *((small_lanes, 1 << 8) if small else ()))
+    if not ok:
+        failures.append("kernel field_pow_n differs from its plain version")
+    ok, readings["field_reduce_n"] = check_field_reduce_n(
+        rep, gen, dev, *((1 << 12,) if small else ()))
+    if not ok:
+        failures.append("kernel field_reduce_n differs from its plain version")
+    ok, readings["vec_ops"] = drive_curve_vec_ops(gen, dev, counts_log,
+                                                  small_lanes if small else None)
+    if not ok:
+        failures.append("a curve vec-op differs from its composition")
+    log(f"[kernels] field_pow_n, field_reduce_n and the curves' vec-ops in "
+        f"{time.perf_counter() - t1:.1f} s")
     # K13's rows: the six full-width MSMs summed, the plain versions at the
     # check's size (c = 8, random scalars)
     msms = [v for k, v in readings["msm"].items() if not k.endswith("msm()")]
@@ -2092,7 +2306,8 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
                 timed="the six full-width MSMs summed (plain versions: the six at "
                       f"{256 if small else 1 << 12} lanes, c 8)")
     for path, names in (("curves: MSMs and msm()", ("msm_accumulate_n", "msm_reduce_n")),
-                        ("curves: NTTs", ("ntt_stage_n", "field_vec_n"))):
+                        ("curves: NTTs", ("ntt_stage_n", "field_vec_n")),
+                        ("curves: vec-ops", ("field_pow_n", "field_reduce_n"))):
         for k in names:
             if not counts_log.get(path, {}).get(k):
                 failures.append(f"{path} did not launch {k}")
@@ -2302,14 +2517,17 @@ KERNEL_FUNCTIONS = {
     "ntt_stage": ("ntt_stage_kernel",), "msm_accumulate": ("msm_accumulate_kernel",),
     "msm_reduce": ("msm_reduce_segments_kernel", "msm_reduce_rows_kernel"),
     "ntt_block": ("ntt_block_kernel",), "point_add": ("point_add_kernel",),
-    "point_dbl_k": ("point_dbl_k_kernel",), "point_to_affine": ("point_to_affine_kernel",),
+    "point_dbl_k": ("point_dbl_k_kernel", "point_dbl_k_pair_kernel"),
+    "point_to_affine": ("point_to_affine_kernel",),
     "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
-    "field_reduce": ("field_reduce_kernel",), "fixed_base_msm": ("fixed_base_kernel",),
+    "field_reduce": ("field_reduce_kernel",),
+    "fixed_base_msm": ("fixed_base_kernel",),
     "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_stage_n_kernel",),
     # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>)
     "msm_accumulate_n": ("msm_accumulate_kernel<EF",),
     "msm_reduce_n": ("msm_reduce_segments_kernel<EF", "msm_reduce_rows_kernel<EF"),
     "four_step_twiddle": ("four_step_twiddle_kernel",),
+    "field_pow_n": ("field_pow_n_kernel",), "field_reduce_n": ("field_reduce_n_kernel",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -2594,7 +2812,8 @@ def curves_only(dev, rng, card) -> int:
     warm_card(dev)
     readings = curves_phase(rep, rng, dev, counts, failures)
     rows = []
-    for k in (kernels.FIELD_VEC_N, kernels.MSM_ACCUMULATE_N, kernels.MSM_REDUCE_N, kernels.NTT_N):
+    for k in (kernels.FIELD_VEC_N, kernels.MSM_ACCUMULATE_N, kernels.MSM_REDUCE_N, kernels.NTT_N,
+              kernels.FIELD_POW_N, kernels.FIELD_REDUCE_N):
         ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
         rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                      "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
@@ -2605,6 +2824,49 @@ def curves_only(dev, rng, card) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_curves.json"), "w") as fh:
         json.dump({"card": card, "curves": readings, "path_counts": counts, "kernels": rows,
                    "ptxas": ptxas_usage(), "failures": failures}, fh, indent=1)
+    print(json.dumps({"kernels": rows}), flush=True)
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def precompute_only(dev, rng, card, lanes: int = 100003) -> int:
+    """--precompute-only: K7 (point_dbl_k and point_to_affine at the
+    complex-100k key's G1 and G2 shape, plan (13, 4)) and K11 (one setup
+    chunk, G1 and G2) against their plain versions, timed with their
+    registers and spills. The points are k_i * G, made by K11 and K7 from
+    random scalars. It calls only entry points that earlier trees of the
+    port have too (fast_setup.fixed_base_msm, jcurve.to_affine and
+    pdbl_k), so a copy of this script run in an unpacked earlier tree
+    measures that tree's kernels. Writes chip_smoke_precompute.json into
+    OUT_DIR."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
+
+    t0 = time.perf_counter()
+    fbs, tables = setup_tables(dev)
+    points = {}
+    for g2 in (False, True):
+        words = rng.integers(0, 1 << 32, size=(lanes, 8), dtype=np.uint64).astype(np.uint32)
+        words[:, 7] = rng.integers(0, lb.FR_SPEC.modulus >> 224, size=lanes).astype(np.uint32)
+        ops = jc.G2 if g2 else jc.G1
+        points[g2] = jc.to_affine(ops, fs.fixed_base_msm(lb.words_to_limbs(words, dev),
+                                                         tables[g2], ops))
+    rep, failures = Report(), []
+    warm_card(dev)
+    if not check_precompute(rep, rng, points, dev):
+        failures.append("kernel point_dbl_k or point_to_affine differs from its plain version")
+    if not check_fixed_base(rep, rng, dev, fbs, tables):
+        failures.append("kernel fixed_base_msm differs from its plain version")
+    rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+             "library_ms": None, **rep.rows.get(k.name, {})}
+            for k in (kernels.POINT_DBL_K, kernels.POINT_TO_AFFINE, kernels.FIXED_BASE)]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_precompute.json"), "w") as fh:
+        json.dump({"card": card, "kernels": rows, "ptxas": ptxas_usage(), "failures": failures,
+                   "total_s": time.perf_counter() - t0}, fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)
     for f in failures:
         print(f"FAILED: {f}", file=sys.stderr)
@@ -2636,6 +2898,9 @@ def main() -> int:
                     help="build, check K15 against its plain version, prove complex-M at D = 2, "
                          "4 and 8 and complex-N at D = 8 on meshes of this card, one process "
                          "over NCCL, and stop")
+    ap.add_argument("--precompute-only", action="store_true",
+                    help="build, check and time K7 and K11 (G1 and G2) against their plain "
+                         "versions with their registers, and stop (usable from an earlier tree)")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -2678,6 +2943,8 @@ def main() -> int:
         return curves_only(dev, rng, card)
     if args.multichip_only:
         return multichip_only(args, dev, rng, card)
+    if args.precompute_only:
+        return precompute_only(dev, rng, card)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
@@ -2739,7 +3006,8 @@ def main() -> int:
         ("ntt_stage", lambda: check_ntt(rep, rng, cache, dev)),
         ("msm g1", lambda: check_msm(rep, rng, cache, dev, False)),
         ("msm g2", lambda: check_msm(rep, rng, cache, dev, True)),
-        ("precompute", lambda: check_precompute(rep, rng, cache, dev)),
+        ("precompute", lambda: check_precompute(rep, rng, (cache.points_a, cache.points_b2),
+                                                dev)),
         ("probe_chain", lambda: check_probe(rep, rng, dev)),
     ]
     for name, fn in checks:

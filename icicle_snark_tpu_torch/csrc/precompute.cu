@@ -6,8 +6,12 @@
 // setup/fast_setup.py _to_affine_bytes: the shifted base copies
 // 2^(c * wp * m) * P of the proving key, stored affine.
 //
-//   point_dbl_k:     k complete doublings of each projective point (p_dbl,
-//                    RCB15 algorithm 9, in a loop). z = 0 stays z = 0.
+//   point_dbl_k:     k complete doublings of each projective point (RCB15
+//                    algorithm 9 in a loop). z = 0 stays z = 0. G1: one
+//                    thread a lane (curve.cuh p_dbl). G2: a lane on a pair
+//                    of threads, each holding one Fq component of x, y and z
+//                    (curve_pair.cuh pair_dbl, inlined: one call site), so
+//                    the 48-word point stays in registers across the loop.
 //   point_to_affine: z^-1 per lane by Fermat, square-and-multiply over the
 //                    bits of q - 2 held in __constant__ memory, then x z^-1,
 //                    y z^-1. z = 0 gives 0^(q-2) = 0 and so (0, 0), the
@@ -18,29 +22,41 @@
 // runs the 254 squarings and 110 products (the set bits of q - 2) out of
 // registers, and lanes stay independent.
 //
-// Affine coordinates are unique and canonical, so both entries equal their
-// plain versions (jcurve.pdbl looped, jcurve.to_affine_plain) word for word.
+// Projective results of the same formulas and affine coordinates are unique
+// canonical words, so both entries equal their plain versions (jcurve.pdbl
+// looped, jcurve.to_affine_plain) word for word.
 //
 // Bound: operations. G2 at complex-100k with (c, f) = (13, 4): shift = 65
-// doublings x 27 Fq products + one inversion (about 370 products) per lane
-// and copy, against 384 bytes per lane. p_dbl stays __noinline__ (build
-// time); registers and spills of each kernel are printed by -Xptxas -v at
-// build.
-#include "curve.cuh"
+// doublings x 27 Fq products (the Karatsuba count; the pair does 32, two
+// squares at one product a thread) + one inversion (about 370 products) per
+// lane and copy, against 384 bytes per lane. Registers and spills of each
+// kernel are printed by -Xptxas -v at build.
+#include "curve_pair.cuh"
 
 // q - 2, little-endian words
 __constant__ u32 Q_MINUS_2[8] = {0xd87cfd45u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
                                  0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 
-template <class E>
 __global__ void point_dbl_k_kernel(u32* __restrict__ out, const u32* __restrict__ in,
                                    long long n, int k) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Pt<E> p = p_load<E>(in, n, i);
+  Pt<E1> p = p_load<E1>(in, n, i);
 #pragma unroll 1
   for (int s = 0; s < k; s++) p = p_dbl(p);
   p_store(out, n, i, p);
+}
+
+// G2: threads 2i and 2i + 1 hold lane i's c0 and c1 components
+__global__ void point_dbl_k_pair_kernel(u32* __restrict__ out, const u32* __restrict__ in,
+                                        long long n, int k) {
+  long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 1;
+  if (i >= n) return;  // both threads of a pair
+  PairLane pl = pair_lane();
+  Pt<E1> p = pair_load(in, n, i, pl);
+#pragma unroll 1
+  for (int s = 0; s < k; s++) p = pair_dbl(p, pl);
+  pair_store(out, n, i, pl, p);
 }
 
 // a^(q-2): the Montgomery form of a^-1 (0 for a = 0)
@@ -79,12 +95,13 @@ extern "C" int snark_point_dbl_k(int g2, void* out, const void* in, long long n,
                                  void* stream) {
   if (n == 0) return 0;
   int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
+  long long nthreads = g2 ? 2 * n : n;  // G2: a pair of threads a lane
+  long long blocks = (nthreads + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
   if (g2)
-    point_dbl_k_kernel<E2><<<blocks, threads, 0, s>>>((u32*)out, (const u32*)in, n, k);
+    point_dbl_k_pair_kernel<<<blocks, threads, 0, s>>>((u32*)out, (const u32*)in, n, k);
   else
-    point_dbl_k_kernel<E1><<<blocks, threads, 0, s>>>((u32*)out, (const u32*)in, n, k);
+    point_dbl_k_kernel<<<blocks, threads, 0, s>>>((u32*)out, (const u32*)in, n, k);
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,9 @@ through `from_jax_limbs`/`to_jax_limbs`).
 `csrc/field_vec.cu` (K1) for a BN254 spec and `csrc/field_vec_n.cu` (K12)
 for the other curves' fields, for CUDA tensors, and run the plain version
 `field_op_plain` for CPU tensors only; `mont_pow_const` (with `mont_inv`
-and `batch_inv`) launches `csrc/field_pow.cu` (K9), its plain version
-`field_pow_plain`, and takes BN254 specs only. The plain version works on
+and `batch_inv`) launches `csrc/field_pow.cu` (K9) for a BN254 spec and
+`csrc/field_pow_n.cu` (K16) for the others, its plain version
+`field_pow_plain`. The plain version works on
 16-bit limbs held in int64 (torch on the CPU has no uint32 add or shift),
 and gives the kernels' canonical results exactly.
 """
@@ -51,9 +52,9 @@ class FieldSpec:
     modulus: int
     name: str
     # the kernels' field selector: for BN254 (K1, K9, K10) 0 = Fr, 1 = Fq,
-    # found from the modulus when not given; for the other fields (K12, K14)
-    # as curves/device.py `curve_specs` assigns it (-1: no kernel has this
-    # field)
+    # found from the modulus when not given; for the other fields (K12, K14,
+    # K16, K17) as curves/device.py `curve_specs` assigns it (-1: no kernel
+    # has this field)
     field_id: int = -1
     # a scalar field's roots of unity, tower[i] of order 2^i, for
     # ops/ntt.py NTTDomain (empty: BN254's refmath tower for its Fr, else
@@ -207,18 +208,20 @@ def _cond_sub_p16(l: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 
 def _mont_mul16(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """CIOS Montgomery product a*b*R^-1 mod p on L = 2 words 16-bit limbs,
-    with lazy int64 columns (each stays below 2^40 at L = 48)."""
+    with lazy int64 columns (each stays below 2^40 at L = 48). The rounds
+    index the limb axis moved to the front (plain integer indexing)."""
     n16 = 2 * spec.words
-    p = spec.p16(a.device)
+    p = spec.p16(a.device).reshape((n16,) + (1,) * (a.dim() - 1))
     n0 = spec.n0inv16
-    acc = torch.zeros(a.shape[:-2] + (2 * n16 + 1, a.shape[-1]), dtype=torch.int64,
-                      device=a.device)
+    a_t, b_t = a.movedim(-2, 0), b.movedim(-2, 0)
+    acc = torch.zeros((2 * n16 + 1,) + a_t.shape[1:], dtype=torch.int64, device=a.device)
     for i in range(n16):
-        acc[..., i:i + n16, :] += a[..., i:i + 1, :] * b
-        m = ((acc[..., i, :] & MASK16) * n0) & MASK16
-        acc[..., i:i + n16, :] += m.unsqueeze(-2) * p
-        acc[..., i + 1, :] += acc[..., i, :] >> 16
-    return _cond_sub_p16(_normalize(acc[..., n16:, :]), spec)
+        win = acc[i:i + n16]
+        win.addcmul_(a_t[i], b_t)
+        # the low 16 bits of acc_i n0 (< 2^56) depend on acc_i's low 16 only
+        win.addcmul_((acc[i] * n0) & MASK16, p)
+        acc[i + 1] += acc[i] >> 16
+    return _cond_sub_p16(_normalize(acc[n16:].movedim(0, -2)), spec)
 
 
 def _add16(a, b, spec):
@@ -350,17 +353,15 @@ def one_mont(spec: FieldSpec, device, lanes: int = 1) -> torch.Tensor:
     return const(spec.r_mod, device, lanes, spec.words)
 
 
-def require_bn254(spec: FieldSpec, what: str):
-    """K9 and K10 hold BN254's constants: any other field raises."""
-    if not spec.bn254:
-        raise InvalidArgument(f"{what}: the kernel covers BN254 Fr and Fq only, not {spec.name}")
+# ------------------------------------------------------------ K9 / K16 wrapper
 
+# the widest exponent each kernel's argument struct holds, in bits
+POW_EXPONENT_BITS = {True: 32 * NLIMB, False: 32 * 24}
 
-# ------------------------------------------------------------ K9 wrapper
 
 def field_pow_plain(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Tensor:
-    """The plain PyTorch version of K9: square-and-multiply from the top bit
-    of the exponent, one plain Montgomery product a step (as
+    """The plain PyTorch version of K9 and K16: square-and-multiply from the
+    top bit of the exponent, one plain Montgomery product a step (as
     icicle_snark_tpu/fields/limbs.py mont_pow_const)."""
     a16 = _to16(a)
     acc = _to16(one_mont(spec, a.device, a.shape[-1]).expand(a.shape))
@@ -371,24 +372,38 @@ def field_pow_plain(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Te
     return _from16(acc)
 
 
+def kernel_exponent(exponent: int, spec: FieldSpec) -> int:
+    """An exponent with the same power of every element of the field that
+    fits the kernel's argument: itself if it does, else (e - 1) mod (p - 1)
+    + 1, which lies in [1, p - 1] and agrees with e modulo p - 1 (Fermat)
+    and is positive as e is (so 0 still maps to 0)."""
+    if exponent.bit_length() <= POW_EXPONENT_BITS[spec.bn254]:
+        return exponent
+    return (exponent - 1) % (spec.modulus - 1) + 1
+
+
 def mont_pow_const(a: torch.Tensor, exponent: int, spec: FieldSpec) -> torch.Tensor:
-    """a^exponent per element (Montgomery form in and out), 0 <= exponent <
-    2^256; exponent 0 gives the Montgomery one. One K9 launch for a CUDA
-    tensor. BN254 fields only (InvalidArgument otherwise)."""
-    require_bn254(spec, "mont_pow_const")
-    _check(a, "a")
-    if not 0 <= exponent < 1 << 256:
-        raise ValueError("mont_pow_const: the exponent must lie in [0, 2^256)")
+    """a^exponent per element (Montgomery form in and out), any exponent >=
+    0; exponent 0 gives the Montgomery one. One K9 launch (BN254) or K16
+    launch (the other curves' fields) for a CUDA tensor."""
+    _check(a, "a", spec.words)
+    if exponent < 0:
+        raise ValueError("mont_pow_const: the exponent must be >= 0")
     if a.device.type == "cpu":
         return field_pow_plain(a, exponent, spec)
     if a.device.type != "cuda":
         raise RuntimeError(f"mont_pow_const: unsupported device {a.device}")
+    if spec.field_id < 0:
+        raise InvalidArgument(f"mont_pow_const: no kernel for the field {spec.name}")
+    e = kernel_exponent(exponent, spec)
     a = a.contiguous()
     out = torch.empty_like(a)
-    words = (ctypes.c_uint32 * NLIMB)(*(int(w) for w in ints_to_words([exponent])[0]))
-    kernels.FIELD_POW.launch(
+    nw = POW_EXPONENT_BITS[spec.bn254] // 32
+    words = (ctypes.c_uint32 * nw)(*(int(w) for w in ints_to_words([e], nw)[0]))
+    kernel = kernels.FIELD_POW if spec.bn254 else kernels.FIELD_POW_N
+    kernel.launch(
         spec.field_id, out.data_ptr(), a.data_ptr(), ctypes.addressof(words),
-        exponent.bit_length(), a.numel() // (NLIMB * a.shape[-1]), a.shape[-1],
+        e.bit_length(), a.numel() // (spec.words * a.shape[-1]), a.shape[-1],
     )
     return out
 
@@ -401,5 +416,6 @@ def mont_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 def batch_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """Inverse of every element along the last axis (the JAX package's
     Montgomery batch-inversion trick gives the same values, the inverse
-    being unique). Elementwise K9: a zero maps to 0 and poisons nothing."""
+    being unique). Elementwise K9 or K16: a zero maps to 0 and poisons
+    nothing."""
     return mont_inv(a, spec)

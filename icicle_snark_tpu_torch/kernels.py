@@ -168,6 +168,10 @@ _SIGNATURES = {
     "snark_ntt_stage_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
     # out, x, tlo, thi, batch, n1, n2_loc, d, shard, s_log, stream
     "snark_four_step": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _VP],
+    # field (KERNEL_FIELDS), out, a, exponent (host words), nbits, nb, n, stream
+    "snark_field_pow_n": [_I, _VP, _VP, _VP, _I, _LL, _LL, _VP],
+    # op, field (KERNEL_FIELDS), out, in, rows, n, blocks, stream
+    "snark_field_reduce_n": [_I, _I, _VP, _VP, _LL, _LL, _LL, _VP],
 }
 
 
@@ -262,6 +266,14 @@ NTT_N = Kernel(
     "ntt_stage_n", "snark_ntt_stage_n", "icicle_snark_tpu_torch/csrc/ntt_n.cu",
     "icicle_snark_tpu/ops/ntt.py:180",
 )
+FIELD_POW_N = Kernel(
+    "field_pow_n", "snark_field_pow_n", "icicle_snark_tpu_torch/csrc/field_pow_n.cu",
+    "icicle_snark_tpu/fields/limbs.py:516",
+)
+FIELD_REDUCE_N = Kernel(
+    "field_reduce_n", "snark_field_reduce_n", "icicle_snark_tpu_torch/csrc/field_reduce_n.cu",
+    "icicle_snark_tpu/ops/vec_ops.py:68",
+)
 # The sharded prove (parallel/)
 FOUR_STEP = Kernel(
     "four_step_twiddle", "snark_four_step", "icicle_snark_tpu_torch/csrc/four_step.cu",
@@ -270,7 +282,8 @@ FOUR_STEP = Kernel(
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
        FIELD_POW, FIELD_REDUCE, FIXED_BASE,
-       FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP)
+       FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP,
+       FIELD_POW_N, FIELD_REDUCE_N)
 
 
 def reset_counts():

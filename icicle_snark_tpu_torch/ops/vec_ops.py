@@ -1,4 +1,5 @@
-"""Element-wise field vector ops and reductions (kernels K1, K9, K10).
+"""Element-wise field vector ops and reductions (kernels K1, K9, K10, and
+K12, K16, K17 over the other curves' fields).
 
 API parity with ICICLE's VecOps surface and with
 icicle_snark_tpu/ops/vec_ops.py: add / accumulate / sub / mul / div / neg /
@@ -14,12 +15,16 @@ on the input's own device:
     curves' fields (curves/device.py `curve_specs`) one K12 launch
     (csrc/field_vec_n.cu) by the same rule;
   * inv is one K9 launch (csrc/field_pow.cu, a^(p-2) per lane; inv(0) = 0),
-    div one K9 and one K1;
-  * sum_reduce and product_reduce are K10 (csrc/field_reduce.cu): one
-    launch over blocks of REDUCE_BLOCK_ELEMS elements of each row, and one
-    more, a block a row, over the blocks' partials when a row has several;
-  * K9 and K10 hold BN254's constants: inv, div and the reductions raise
-    InvalidArgument for any other field, on every device.
+    div one K9 and one K1; over the other fields K16
+    (csrc/field_pow_n.cu) and K12;
+  * sum_reduce and product_reduce are K10 (csrc/field_reduce.cu), K17
+    (csrc/field_reduce_n.cu) over the other fields: one launch over blocks
+    of REDUCE_BLOCK_ELEMS elements of each row, and one more, a block a
+    row, over the blocks' partials when a row has several;
+  * product_reduce over a field of more than 8 words raises
+    InvalidArgument, on every device, as the JAX package's does (its
+    product_reduce, icicle_snark_tpu/ops/vec_ops.py:84, reshapes the
+    Montgomery one to (NLIMB, 1) and fails at 12 and 24 words).
 
 For CPU tensors each kernel's plain version runs instead.
 """
@@ -29,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..errors import InvalidArgument
 from ..fields import limbs as lb
 from ..fields.limbs import FR_SPEC, NLIMB
 
@@ -98,14 +104,14 @@ def scalar_mul(s, v, spec=FR_SPEC):
 def _fill(op: int, spec, device) -> torch.Tensor:
     """The padding of the JAX tree: 0 for the sum, the Montgomery one for
     the product."""
-    return lb.one_mont(spec, device) if op else torch.zeros((NLIMB, 1), dtype=torch.int32,
+    return lb.one_mont(spec, device) if op else torch.zeros((spec.words, 1), dtype=torch.int32,
                                                               device=device)
 
 
 def field_reduce_plain(op: int, v: torch.Tensor, spec) -> torch.Tensor:
-    """The plain PyTorch version of K10: the JAX package's log-depth
-    pairing (element 2j with 2j+1, an odd tail padded) over (..., 8, n);
-    returns (..., 8, 1)."""
+    """The plain PyTorch version of K10 and K17: the JAX package's log-depth
+    pairing (element 2j with 2j+1, an odd tail padded) over (..., words, n);
+    returns (..., words, 1)."""
     code = lb.OP_MUL if op else lb.OP_ADD
     fill = _fill(op, spec, v.device)
     while v.shape[-1] > 1:
@@ -117,23 +123,32 @@ def field_reduce_plain(op: int, v: torch.Tensor, spec) -> torch.Tensor:
 
 def field_reduce(op: int, v: torch.Tensor, spec) -> torch.Tensor:
     """Modular sum (op 0) or Montgomery product (op 1) over the last axis of
-    (..., 8, n), n >= 1; returns (..., 8, 1), canonical. Two K10 launches,
-    one when a row fits one block. BN254 fields only."""
-    lb.require_bn254(spec, "field_reduce")
-    lb._check(v, "v")
+    (..., words, n), n >= 1; returns (..., words, 1), canonical. Two K10
+    (BN254) or K17 launches, one when a row fits one block. The product
+    takes fields of 8 words only (InvalidArgument otherwise), as the JAX
+    package's product_reduce does."""
+    w = spec.words
+    lb._check(v, "v", w)
     if op not in (0, 1) or v.shape[-1] < 1:
         raise ValueError(f"field_reduce: want op 0 or 1 and n >= 1, got {op}, n = {v.shape[-1]}")
+    if op and w > NLIMB:
+        raise InvalidArgument(
+            f"product_reduce: {spec.name} has {w} words; the JAX package's product_reduce "
+            f"(icicle_snark_tpu/ops/vec_ops.py:84) reshapes its one to (NLIMB, 1) and fails "
+            f"above {NLIMB} words")
     if v.device.type == "cpu":
         return field_reduce_plain(op, v, spec)
     if v.device.type != "cuda":
         raise RuntimeError(f"field_reduce: unsupported device {v.device}")
+    if spec.field_id < 0:
+        raise InvalidArgument(f"field_reduce: no kernel for the field {spec.name}")
+    kernel = kernels.FIELD_REDUCE if spec.bn254 else kernels.FIELD_REDUCE_N
     v = v.contiguous()
-    rows, n = v.numel() // (NLIMB * v.shape[-1]), v.shape[-1]
+    rows, n = v.numel() // (w * v.shape[-1]), v.shape[-1]
 
     def launch(src, n, blocks):
         out = torch.empty(v.shape[:-1] + (blocks,), dtype=torch.int32, device=v.device)
-        kernels.FIELD_REDUCE.launch(op, spec.field_id, out.data_ptr(), src.data_ptr(),
-                                    rows, n, blocks)
+        kernel.launch(op, spec.field_id, out.data_ptr(), src.data_ptr(), rows, n, blocks)
         return out
 
     blocks = -(-n // REDUCE_BLOCK_ELEMS)
@@ -142,13 +157,13 @@ def field_reduce(op: int, v: torch.Tensor, spec) -> torch.Tensor:
 
 
 def sum_reduce(v, spec=FR_SPEC):
-    """Modular sum over the last axis: (..., 8, n) -> (..., 8)."""
+    """Modular sum over the last axis: (..., words, n) -> (..., words)."""
     return field_reduce(REDUCE_OPS["sum"], v, spec)[..., 0]
 
 
 def product_reduce(v, spec=FR_SPEC):
     """Modular product over the last axis (Montgomery in and out):
-    (..., 8, n) -> (..., 8)."""
+    (..., 8, n) -> (..., 8); fields of 8 words only."""
     return field_reduce(REDUCE_OPS["product"], v, spec)[..., 0]
 
 

@@ -3,9 +3,9 @@ against the JAX package: the parameter copies, K12's plain versions at 8,
 12 and 24 words (the five new moduli), the Fq2 product with each bls12
 non-residue, the limb conversions at every width, the kernels' constants
 (csrc/field_n.cuh, csrc/curve_n.cuh), the NTT over each Fr (K14's plain
-stages), the host pairing copy, and the BN254-only kernels refusing the
-other fields. Inputs are seeded numpy values; field values compare as
-canonical integers."""
+stages) and the host pairing copy (inv, div and the reductions over these
+fields: tests/test_torch_vec_ops_curves.py). Inputs are seeded numpy
+values; field values compare as canonical integers."""
 
 import dataclasses
 import re
@@ -24,7 +24,6 @@ from icicle_snark_tpu.ops import ntt as jntt
 from icicle_snark_tpu_torch.config import NTTConfig
 from icicle_snark_tpu_torch.curves import device as cdev
 from icicle_snark_tpu_torch.curves import host, pairing, params
-from icicle_snark_tpu_torch.errors import InvalidArgument
 from icicle_snark_tpu_torch.fields import limbs as lb
 from icicle_snark_tpu_torch.ops import ntt, vec_ops
 
@@ -280,17 +279,6 @@ def test_pairing_copy_matches_jax(name):
     e = pr.pairing(aP, bQ)
     assert pr.fp12.eq(e, jpairing.get_pairing(name).pairing(aP, bQ))
     assert pr.fp12.eq(e, pr.fp12.pow(pr.pairing(p.g1, p.g2), 35))
-
-
-@pytest.mark.parametrize("fn", ["inv", "div", "sum_reduce", "product_reduce"])
-def test_bn254_kernels_refuse_other_fields(fn):
-    """K9 and K10 hold BN254's constants: every other field raises, on the
-    CPU as on the card."""
-    fr = cdev.curve_specs("bls12_381")[1]
-    x = _fr_limbs(fr, [1, 2, 3, 4])
-    args = (x, x) if fn == "div" else (x,)
-    with pytest.raises(InvalidArgument):
-        getattr(vec_ops, fn)(*args, spec=fr)
 
 
 def test_vec_ops_on_other_fields():
