@@ -9,6 +9,7 @@
     python3 chip_smoke.py --curves-only # K12-K14, K16, K17: the other curves' MSMs, NTTs, vec-ops
     python3 chip_smoke.py --multichip-only  # K15 and the sharded prove on meshes of this card
     python3 chip_smoke.py --precompute-only # K7 and K11 against plain, timed, with registers
+    python3 chip_smoke.py --curves-msm-only # K13 alone at the six full-width MSMs, by stage
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -70,7 +71,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      default window, and on bit-valued scalars with BUCKET_PIECE 2; the
      full-width MSMs (G1 2^22 and G2 2^20 lanes on bls12, 2^20 and 2^20 on
      bw6-761) through the pipeline `curves/device.py` `msm` runs, equal in
-     affine form to the host's sum over the 64-point pool, timed; `msm()`
+     affine form to the host's sum over the 64-point pool, timed (K13's
+     accumulate levels and reduce stages apart, `k13_times`); `msm()`
      itself at 2^16 lanes from host lists; K14 (ntt_stage_n) over the three
      Fr: the pair against the plain stages at 2^12 and at 2^22, 2^4 against
      a host DFT, the round trip and a coset round trip through
@@ -502,10 +504,12 @@ def sass_census(sources=("ntt_block.cu", "r1cs.cu", "field_vec.cu", "field_pow.c
                 fn["imad"][op] += 1
     for name, fn in out.items():
         fn["total"] = sum(fn["ops"].values())
+        fn["memory"] = {op: fn["ops"].get(op, 0) for op in ("LDL", "STL", "LDS", "STS", "LDG",
+                                                             "STG")}
         fn["ops"] = dict(fn["ops"].most_common(12))
         fn["imad"] = dict(fn["imad"].most_common())
         log(f"[sass] {fn['source']} {name}: {fn['total']} instructions; " + json.dumps(fn["ops"])
-            + "; IMAD forms " + json.dumps(fn["imad"]))
+            + "; IMAD forms " + json.dumps(fn["imad"]) + "; memory " + json.dumps(fn["memory"]))
     return out
 
 
@@ -1686,7 +1690,7 @@ def muls_per_product(words: int) -> int:
 def group_products(grp, op: str) -> int:
     """Fq products of one point operation of a K13 group: 3 a coordinate
     product over Fq2 (Karatsuba), 1 over Fq; b3 by addition chains except
-    bls12-377 G2's (two products by a constant, csrc/curve_n.cuh)."""
+    bls12-377 G2's (two products by a constant, ops/point_programs.py)."""
     e_muls, b3s = E_MULS[op]
     per = 3 if len(grp.coords) == 2 else 1
     b3 = 2 if grp.name == "bls12_377_g2" else 0
@@ -1870,6 +1874,49 @@ def check_msm_n(gen, dev, lanes: int = 1 << 12) -> tuple:
     return ok, out
 
 
+def k13_times(rec, sc, n: int, c: int, grp, reps: int = 2) -> dict:
+    """K13 alone on one MSM's lanes (sorted here): accumulate and reduce
+    over `reps` calls each (CUDA events), then one call of each under
+    torch.profiler for the device ms of every kernel (the accumulate's
+    level 0 and its fold levels, the reduce's stages), and the window sums
+    for a comparison in affine form. It calls only entry points that earlier
+    trees of the port have too (msm.sort_windows, msm_accumulate and
+    msm_reduce with a PointGroup)."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import msm
+
+    half = 1 << (c - 1)
+    order, negs, ends = msm.sort_windows(sc, [n], c)
+    windows = order.shape[0]
+    bk = msm.msm_accumulate(rec, order, negs, ends, 1, half, grp)
+    acc_ms = cuda_time(lambda: msm.msm_accumulate(rec, order, negs, ends, 1, half, grp), reps)
+    red_ms = cuda_time(lambda: msm.msm_reduce(bk, windows, 1, half, grp), reps)
+    kms = {}
+    for fn in (lambda: msm.msm_accumulate(rec, order, negs, ends, 1, half, grp),
+               lambda: msm.msm_reduce(bk, windows, 1, half, grp)):
+        per, _other, _wall, _seen = kernel_device_ms(fn, lambda name: "msm" in name)
+        kms.update(per)
+    digits, _ = msm.window_digits_signed(sc, c)
+    madds = int((digits != 0).sum())
+    ws = msm.msm_reduce(bk, windows, 1, half, grp)
+    del digits, order, negs, ends, bk
+    torch.cuda.empty_cache()
+    return dict(windows=windows, mixed_adds=madds, accumulate_ms=acc_ms, reduce_ms=red_ms,
+                kernel_ms=kms, window_sums=ws)
+
+
+def _affine_digest(ws, grp, hc) -> str:
+    """A digest of the window sums in affine form (equal for two designs
+    that add the same points in another order)."""
+    import hashlib
+
+    from icicle_snark_tpu_torch.curves import device as cdev
+
+    pts = [hc.to_affine(p) for p in cdev.window_points_to_host(ws, grp.ops, 0)]
+    return hashlib.sha256(repr(pts).encode()).hexdigest()[:16]
+
+
 def drive_curve_msms(gen, rng, dev, counts_log, sizes=None, api_lanes: int = 1 << 16) -> tuple:
     """The curves' MSMs at users' sizes: for each curve and group, scalars
     below r (made on the card) and points tiled from a pool of 64 multiples
@@ -1918,32 +1965,28 @@ def drive_curve_msms(gen, rng, dev, counts_log, sizes=None, api_lanes: int = 1 <
             same = hc.to_affine(got) == hc.to_affine(want)
             ok &= same
             # K13 alone, on this MSM's sorted lanes
-            half = 1 << (c - 1)
-            order, negs, ends = msm.sort_windows(sc, [n], c)
-            windows = order.shape[0]
-            bk = msm.msm_accumulate(rec, order, negs, ends, 1, half, grp)
-            acc_ms = cuda_time(lambda: msm.msm_accumulate(rec, order, negs, ends, 1, half, grp), 2)
-            red_ms = cuda_time(lambda: msm.msm_reduce(bk, windows, 1, half, grp), 2)
-            digits, _ = msm.window_digits_signed(sc, c)
-            madds = int((digits != 0).sum())
-            del digits
+            k13 = k13_times(rec, sc, n, c, grp)
+            del k13["window_sums"]
+            windows, madds, half = k13["windows"], k13["mixed_adds"], 1 << (c - 1)
             mp = muls_per_product(grp.coords[-1])
             nbk = windows * half
-            acc_b = bound(n * 2 * grp.words * 4 + windows * n * 5 + ends.numel() * 4
+            acc_b = bound(n * 2 * grp.words * 4 + windows * n * 5 + windows * (half + 1) * 4
                           + nbk * 3 * grp.words * 4, madds * group_products(grp, "madd") * mp)
             red_b = bound(nbk * 3 * grp.words * 4 + windows * 3 * grp.words * 4,
                           windows * 2 * (half - 1) * group_products(grp, "add") * mp)
-            del order, negs, ends, bk, ws, rec, sc
+            del ws, rec, sc
             torch.cuda.empty_cache()
+            acc_ms, red_ms = k13["accumulate_ms"], k13["reduce_ms"]
             out[grp.name] = dict(lanes=n, c=c, windows=windows, same_affine=same,
-                                 accumulate_ms=acc_ms, reduce_ms=red_ms, call_ms=call_ms,
-                                 accumulate_bound_ms=acc_b[0], accumulate_bound_by=acc_b[1],
-                                 reduce_bound_ms=red_b[0], reduce_bound_by=red_b[1],
-                                 mixed_adds=madds, peak_memory_gb=peak_gb)
+                                 call_ms=call_ms, accumulate_bound_ms=acc_b[0],
+                                 accumulate_bound_by=acc_b[1], reduce_bound_ms=red_b[0],
+                                 reduce_bound_by=red_b[1], peak_memory_gb=peak_gb,
+                                 **{k: v for k, v in k13.items() if k != "windows"})
             log(f"  msm {grp.name}: {n} lanes, c {c}, W {windows}: affine result == host sum: "
                 f"{same}; accumulate {acc_ms:.2f} ms (bound {acc_b[0]:.2f}, {acc_b[1]}), reduce "
-                f"{red_ms:.2f} ms (bound {red_b[0]:.2f}, {red_b[1]}); the call {call_ms:.1f} ms "
-                f"(host clock, Horner included); peak device memory {peak_gb:.2f} GB")
+                f"{red_ms:.2f} ms (bound {red_b[0]:.2f}, {red_b[1]}); by kernel (device ms) "
+                f"{json.dumps(k13['kernel_ms'])}; the call {call_ms:.1f} ms (host clock, Horner "
+                f"included); peak device memory {peak_gb:.2f} GB")
     # the entry point itself, host lists in
     py_rng = np.random.default_rng(int(rng.integers(1 << 31)))
     for name in CURVES:
@@ -2297,14 +2340,24 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
     msms = [v for k, v in readings["msm"].items() if not k.endswith("msm()")]
     plains = [v for k, v in readings["msm_n_plain"].items() if k.endswith(" c 8")]
     same = all(v["equal_to_plain"] for v in readings["msm_n_plain"].values())
+    # device ms by kernel over the six, K13's stages apart (torch.profiler)
+    by_kernel = {}
+    for v in msms:
+        for name, ms in v["kernel_ms"].items():
+            stage = name.split("<")[0]
+            if "accumulate" in name:
+                stage += " level 0" if name.rstrip("> ").endswith("true") else " folds"
+            by_kernel[stage] = by_kernel.get(stage, 0.0) + ms
     for kern, key, pkey in ((kernels.MSM_ACCUMULATE_N, "accumulate", "acc_plain_ms"),
                             (kernels.MSM_REDUCE_N, "reduce", "reduce_plain_ms")):
         bnd = sum(v[f"{key}_bound_ms"] for v in msms)
         rep.add(kern.name, equal_to_plain=same, max_abs_err=0.0 if same else 1.0,
                 ms=sum(v[f"{key}_ms"] for v in msms), plain_ms=sum(v[pkey] for v in plains),
                 bound_ms=bnd, bound_by="operations",
+                stages_ms={k: v for k, v in by_kernel.items() if key in k},
                 timed="the six full-width MSMs summed (plain versions: the six at "
                       f"{256 if small else 1 << 12} lanes, c 8)")
+    log("[curves] K13 device ms by stage over the six MSMs: " + json.dumps(by_kernel))
     for path, names in (("curves: MSMs and msm()", ("msm_accumulate_n", "msm_reduce_n")),
                         ("curves: NTTs", ("ntt_stage_n", "field_vec_n")),
                         ("curves: vec-ops", ("field_pow_n", "field_reduce_n"))):
@@ -2523,9 +2576,10 @@ KERNEL_FUNCTIONS = {
     "field_reduce": ("field_reduce_kernel",),
     "fixed_base_msm": ("fixed_base_kernel",),
     "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_stage_n_kernel",),
-    # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>)
+    # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>),
+    # the tree of csrc/msm_kernels_n.cuh
     "msm_accumulate_n": ("msm_accumulate_kernel<EF",),
-    "msm_reduce_n": ("msm_reduce_segments_kernel<EF", "msm_reduce_rows_kernel<EF"),
+    "msm_reduce_n": ("msm_reduce_segments_kernel<EF", "msm_n_reduce_tree_kernel"),
     "four_step_twiddle": ("four_step_twiddle_kernel",),
     "field_pow_n": ("field_pow_n_kernel",), "field_reduce_n": ("field_reduce_n_kernel",),
 }
@@ -2830,6 +2884,64 @@ def curves_only(dev, rng, card) -> int:
     return 1 if failures else 0
 
 
+def curves_msm_only(dev, rng, card) -> int:
+    """--curves-msm-only: K13 alone at the six full-width MSMs of
+    CURVE_MSM_LANES (`k13_times`: accumulate and reduce on CUDA events,
+    every kernel's device ms), the registers, stack and spills and the SASS
+    census of the curve files, and a digest of each MSM's window sums in
+    affine form. It calls only entry points that every tree since K13 came
+    has: a copy of this script in an unpacked earlier tree measures that
+    tree's K13 on the same inputs, and equal digests show that the two
+    designs agree. Writes chip_smoke_k13.json into OUT_DIR."""
+    import torch
+
+    from icicle_snark_tpu_torch.curves import device as cdev
+    from icicle_snark_tpu_torch.ops import msm
+
+    t0 = time.perf_counter()
+    sources = tuple(f"msm_{c}.cu" for c in CURVES)
+    usage = {k: u for k, u in ptxas_usage().items() if u.get("source") in sources}
+    for name, u in sorted(usage.items()):
+        log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
+            f"{u.get('stack')} B, spill stores {u.get('spill_stores')} B, loads "
+            f"{u.get('spill_loads')} B")
+    sass = sass_census(sources)
+    warm_card(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    out = {}
+    for name in CURVES:
+        fr = cdev.curve_specs(name)[1]
+        for g2 in (False, True):
+            hc, pool = _pool_points(name, g2, rng, 64)
+            grp = cdev.g2_group(name) if g2 else cdev.g1_group(name)
+            n = CURVE_MSM_LANES[name][int(g2)]
+            c = msm.choose_c(n, bits=32 * fr.words)
+            rec = msm.point_records(cdev.affine_to_device(pool, grp.ops, dev)).repeat(n // 64, 1)
+            sc = random_field_n(gen, fr, (n,), dev, edges=False)
+            k13 = k13_times(rec, sc, n, c, grp, reps=3)
+            digest = _affine_digest(k13.pop("window_sums"), grp, hc)
+            del rec, sc
+            torch.cuda.empty_cache()
+            # blocks of the tree kernel an SM holds (trees that have the tree)
+            occ = (msm.k13_tree_blocks_per_sm(grp) if hasattr(msm, "k13_tree_blocks_per_sm")
+                   else None)
+            out[grp.name] = dict(lanes=n, c=c, digest=digest, blocks_per_sm=occ, **k13)
+            log(f"  k13 {grp.name}: {n} lanes, c {c}: accumulate {k13['accumulate_ms']:.3f} ms, "
+                f"reduce {k13['reduce_ms']:.3f} ms (CUDA events); by kernel (device ms) "
+                f"{json.dumps(k13['kernel_ms'])}; window sums' affine digest {digest}; tree "
+                f"blocks an SM holds {occ}")
+    acc = sum(v["accumulate_ms"] for v in out.values())
+    red = sum(v["reduce_ms"] for v in out.values())
+    log(f"[k13] the six MSMs: accumulate {acc:.2f} ms, reduce {red:.2f} ms; "
+        f"{time.perf_counter() - t0:.1f} s after the build")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_k13.json"), "w") as fh:
+        json.dump({"card": card, "k13": out, "accumulate_ms": acc, "reduce_ms": red,
+                   "ptxas": usage, "sass": sass}, fh, indent=1)
+    return 0
+
+
 def precompute_only(dev, rng, card, lanes: int = 100003) -> int:
     """--precompute-only: K7 (point_dbl_k and point_to_affine at the
     complex-100k key's G1 and G2 shape, plan (13, 4)) and K11 (one setup
@@ -2901,6 +3013,9 @@ def main() -> int:
     ap.add_argument("--precompute-only", action="store_true",
                     help="build, check and time K7 and K11 (G1 and G2) against their plain "
                          "versions with their registers, and stop (usable from an earlier tree)")
+    ap.add_argument("--curves-msm-only", action="store_true",
+                    help="build, time K13 alone at the six full-width curve MSMs by stage with "
+                         "its registers, and stop (usable from an earlier tree)")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -2945,6 +3060,8 @@ def main() -> int:
         return multichip_only(args, dev, rng, card)
     if args.precompute_only:
         return precompute_only(dev, rng, card)
+    if args.curves_msm_only:
+        return curves_msm_only(dev, rng, card)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "

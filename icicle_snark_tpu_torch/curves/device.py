@@ -12,7 +12,8 @@ over them, as the reference instantiates its templates per curve.
     versions of K13's point formulas;
   * `g1_group` / `g2_group` name a curve's point type for ops/msm.py:
     its window sums run K13 (csrc/msm_<curve>.cu: K4's accumulate and
-    reduce templates at the curve's types, csrc/curve_n.cuh);
+    segments templates at the curve's types, csrc/curve_n.cuh, and the
+    tree of csrc/msm_kernels_n.cuh);
   * `msm` takes host scalars and affine points, runs the window sums on
     the device and Horner on the host over curves/host.py.
 

@@ -162,8 +162,12 @@ _SIGNATURES = {
     "snark_field_vec_n": [_I, _I, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     # curve, then snark_msm_accumulate's arguments
     "snark_msm_accumulate_n": [_I, _I, _I, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP],
-    # curve, then snark_msm_reduce's arguments
-    "snark_msm_reduce_n": [_I, _I, _I, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
+    # curve, g2, stage, out, m_out, t_out, m_in, t_in, windows, groups, n, k,
+    # the program table (ops/point_programs.py) and its meta (7 host ints), stream
+    "snark_msm_reduce_n": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP,
+                           _VP],
+    # curve, g2, meta: blocks of the tree kernel an SM holds (no launch)
+    "snark_msm_n_occupancy": [_I, _I, _VP],
     # field, x, tw (stage-major), scale, batch, n, m, inverse, stream
     "snark_ntt_stage_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
     # out, x, tlo, thi, batch, n1, n2_loc, d, shard, s_log, stream
@@ -256,11 +260,12 @@ _MSM_N_SOURCES = "; ".join(f"icicle_snark_tpu_torch/csrc/msm_{c}.cu"
                            for c in ("bls12_377", "bls12_381", "bw6_761"))
 MSM_ACCUMULATE_N = Kernel(
     "msm_accumulate_n", "snark_msm_accumulate_n", _MSM_N_SOURCES,
-    "icicle_snark_tpu/curves/device.py:254; icicle_snark_tpu/ops/msm.py:609",
+    "icicle_snark_tpu/curves/device.py:255; icicle_snark_tpu/ops/msm.py:609",
 )
 MSM_REDUCE_N = Kernel(
-    "msm_reduce_n", "snark_msm_reduce_n", _MSM_N_SOURCES,
-    "icicle_snark_tpu/curves/device.py:254; icicle_snark_tpu/ops/msm.py:701",
+    "msm_reduce_n", "snark_msm_reduce_n",
+    "icicle_snark_tpu_torch/csrc/msm_kernels_n.cuh; " + _MSM_N_SOURCES,
+    "icicle_snark_tpu/curves/device.py:255; icicle_snark_tpu/ops/msm.py:701",
 )
 NTT_N = Kernel(
     "ntt_stage_n", "snark_ntt_stage_n", "icicle_snark_tpu_torch/csrc/ntt_n.cu",

@@ -37,20 +37,24 @@ as icicle_snark_tpu/ops/msm.py does.
 
 The other curves (curves/device.py) run steps 1-4 over their own point
 types: a `PointGroup` names the field-op tables, the coordinate shape and
-the kernels (K13, csrc/msm_<curve>.cu, K4's templates instantiated for the
-curve), and the scalar width comes from the scalars' word count (256 bits
-for the bls12 Fr, 384 for the bw6-761 Fr, as the JAX package's 16 * nlimb).
-BN254 calls pass `g2` as a bool, as before.
+the kernels (K13, csrc/msm_<curve>.cu: K4's accumulate and segments
+templates at the curve's types, then the rows stage as a tree, csrc/
+msm_kernels_n.cuh, `msm_reduce_n_plain`), and the scalar width comes from
+the scalars' word count (256 bits for the bls12 Fr, 384 for the bw6-761 Fr,
+as the JAX package's 16 * nlimb). BN254 calls pass `g2` as a bool, as
+before.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import kernels
+from . import point_programs as pprog
 from ..curve import jcurve as jc
 from ..errors import InvalidArgument
 from ..fields.limbs import NLIMB
@@ -67,6 +71,9 @@ BUCKET_PIECE = 16
 # (PERF.md, the K4 sweep of chip_smoke.py).
 REDUCE_SEG = 16
 REDUCE_BLOCK = 256
+# K13 reduce: buckets a thread of the segments stage sums (min(16, H)); the
+# tree above the segments halves the runs of a row per level.
+REDUCE_SEG_N = 16
 # Items one plain-torch accumulate step takes at a time (bounds the plain
 # version's temporaries at the full-size MSMs).
 PLAIN_CHUNK = 1 << 21
@@ -450,10 +457,8 @@ def msm_reduce_rows_plain(ops, seg_s, seg_t, windows: int, groups: int, n_seg: i
     v = block_sum(tri)
     for _ in range(seg.bit_length() - 1):
         v = jc.pdbl(ops, v)
-    out = jc.point_stack(jc.padd(ops, a, v))
     # row w*G + g -> (G, W)
-    shp = out.shape[:-1]
-    return out.reshape(shp + (windows, groups)).transpose(-1, -2).contiguous()
+    return _rows_to_windows(jc.point_stack(jc.padd(ops, a, v)), windows, groups)
 
 
 def _buckets_group(buckets, group):
@@ -461,10 +466,61 @@ def _buckets_group(buckets, group):
     return as_group(buckets.dim() == 4) if group is None else group
 
 
+def reduce_shape_n(half: int) -> tuple:
+    """(s, n_seg) of K13 reduce for H = half buckets: segments of s =
+    min(REDUCE_SEG_N, H) buckets, n_seg = H / s of them per row, log2(n_seg)
+    tree levels above them."""
+    seg = min(REDUCE_SEG_N, half)
+    return seg, half // seg
+
+
+def _rows_to_windows(out, windows: int, groups: int):
+    """(3, coords..., rows) in row order w * G + g -> (3, coords..., G, W)."""
+    shp = out.shape[:-1]
+    return out.reshape(shp + (windows, groups)).transpose(-1, -2).contiguous()
+
+
+def _tree_level_plain(ops, m, tri, rows: int, n: int, scale: int):
+    """One level of K13's tree over n runs a row: runs a and a + 1 give T =
+    (T_a + T_{a+1}) + M_{a+1} and M = 2 (M_a + M_{a+1}); at the first level
+    (scale = log2 s) m holds the segments' sums S, so M_{a+1} = 2^scale
+    S_{a+1} and M = 2^(1 + scale) (S_a + S_{a+1}). Returns (m, tri) of the
+    n / 2 runs."""
+    lo = torch.arange(rows * (n // 2), device=tri[0].device)
+    lo = (lo // (n // 2)) * n + 2 * (lo % (n // 2))
+    m_a, m_b = _lanes(m, lo), _lanes(m, lo + 1)
+    scaled = m_b
+    for _ in range(scale):
+        scaled = jc.pdbl(ops, scaled)
+    tri = jc.padd(ops, jc.padd(ops, _lanes(tri, lo), _lanes(tri, lo + 1)), scaled)
+    m = jc.padd(ops, m_a, m_b)
+    for _ in range(1 + scale):
+        m = jc.pdbl(ops, m)
+    return m, tri
+
+
+def msm_reduce_n_plain(ops, buckets, windows: int, groups: int, half: int):
+    """Plain version of K13 reduce, in its order of additions: K4's
+    segments stage (S and T per segment of s buckets), then the tree
+    (csrc/msm_kernels_n.cuh) halving each row's runs until one is left,
+    whose T is the window sum."""
+    rows = windows * groups
+    seg, n_seg = reduce_shape_n(half)
+    m, tri = msm_reduce_segments_plain(ops, buckets, rows, half, seg)
+    n, scale = n_seg, seg.bit_length() - 1
+    while n > 1:
+        m, tri = _tree_level_plain(ops, m, tri, rows, n, scale)
+        n, scale = n // 2, 0
+    return _rows_to_windows(jc.point_stack(tri), windows, groups)
+
+
 def msm_reduce_plain(buckets, windows: int, groups: int, half: int, group=None):
     """Plain version of K4 / K13 reduce: (3, coords..., W*G*H) -> (3,
     coords..., G, W)."""
-    ops = _buckets_group(buckets, group).plain
+    grp = _buckets_group(buckets, group)
+    ops = grp.plain
+    if grp.curve >= 0:
+        return msm_reduce_n_plain(ops, buckets, windows, groups, half)
     seg, n_seg, nt, _q = reduce_shape(half)
     seg_s, seg_t = msm_reduce_segments_plain(ops, buckets, windows * groups, half, seg)
     return msm_reduce_rows_plain(ops, seg_s, seg_t, windows, groups, n_seg, nt, seg)
@@ -473,7 +529,8 @@ def msm_reduce_plain(buckets, windows: int, groups: int, half: int, group=None):
 def msm_reduce(buckets, windows: int, groups: int, half: int, group=None):
     """Window sums sum_b b * bucket_b: (3, coords..., W*G*H) -> (3, coords..., G, W).
     Two launches (segments, rows) of K4 for BN254 (`group` None: G1 or G2 by
-    the rank), of K13 for the other curves' groups."""
+    the rank); for the other curves' groups K13, its segments stage and one
+    launch per tree level (`msm_reduce_n_plain`)."""
     grp = _buckets_group(buckets, group)
     if (buckets.shape[-1] != windows * groups * half or half & (half - 1)
             or buckets.dtype != torch.int32 or tuple(buckets.shape[:-1]) != (3,) + grp.coords):
@@ -486,6 +543,8 @@ def msm_reduce(buckets, windows: int, groups: int, half: int, group=None):
     if buckets.device.type != "cuda":
         raise RuntimeError(f"msm_reduce: unsupported device {buckets.device}")
     buckets = buckets.contiguous()
+    if grp.curve >= 0:
+        return _msm_reduce_n(buckets, windows, groups, half, grp)
     seg, n_seg, nt, _q = reduce_shape(half)
     coords = tuple(buckets.shape[1:-1])
     rows = windows * groups
@@ -499,6 +558,47 @@ def msm_reduce(buckets, windows: int, groups: int, half: int, group=None):
             kernels.MSM_REDUCE.launch(*args)
         else:
             kernels.MSM_REDUCE_N.launch(grp.curve, *args)
+    return out
+
+
+def k13_tree_blocks_per_sm(grp) -> int:
+    """Blocks of 32 threads an SM of the card holds for K13's tree kernel at
+    the slots of the group's programs (cudaOccupancyMaxActiveBlocksPer-
+    Multiprocessor): what the slots leave of the card."""
+    meta = (ctypes.c_int * 7)(*pprog.group_programs(grp).meta())
+    return kernels.lib().snark_msm_n_occupancy(grp.curve, int(grp.g2), ctypes.addressof(meta))
+
+
+def _msm_reduce_n(buckets, windows: int, groups: int, half: int, grp):
+    """K13 reduce on the card: K4's segments stage, then one launch per tree
+    level (`msm_reduce_n_plain`); the last level writes the window sums."""
+    rows = windows * groups
+    seg, n_seg = reduce_shape_n(half)
+    dev = buckets.device
+    gp = pprog.group_programs(grp)
+    table, meta = pprog.program_table(grp, dev), (ctypes.c_int * 7)(*gp.meta())
+    out = torch.empty((3,) + grp.coords + (groups, windows), dtype=torch.int32, device=dev)
+
+    def runs(n):
+        return tuple(torch.empty((3,) + grp.coords + (rows * n,), dtype=torch.int32, device=dev)
+                     for _ in range(2))
+
+    def launch(stage, m_out, t_out, m_in, t_in, n, k):
+        kernels.MSM_REDUCE_N.launch(grp.curve, int(grp.g2), stage, out.data_ptr(),
+                                    *(0 if t is None else t.data_ptr()
+                                      for t in (m_out, t_out, m_in, t_in)),
+                                    windows, groups, n, k, table.data_ptr(),
+                                    ctypes.addressof(meta))
+
+    m, t = runs(n_seg)
+    launch(0, m, t, buckets, None, half, seg)
+    if n_seg == 1:
+        return _rows_to_windows(t, windows, groups)
+    n, scale = n_seg, seg.bit_length() - 1
+    while n > 1:
+        m2, t2 = runs(n // 2) if n > 2 else (None, None)
+        launch(1, m2, t2, m, t, n, scale)
+        m, t, n, scale = m2, t2, n // 2, 0
     return out
 
 
