@@ -1116,14 +1116,102 @@ def kernel_usage(source: str, fragment: str) -> str:
         if u.get("source") == source and fragment in name) or "not in the build log"
 
 
-def check_precompute(rep, rng, points, dev, c: int = 13, factor: int = 4):
-    """K7's two kernels at the shape of the key's G1 and G2 points (`points`:
-    the (x, y) of G1 and of G2) for the plan (c, f): each against its plain
-    version word for word (with the identity and a doubled point among the
-    lanes), the G2 kernels timed with their registers, and
-    `precompute_bases` (both kernels) against host integers on the first G2
-    lanes. G2's doublings run on a pair of threads a lane
-    (csrc/curve_pair.cuh)."""
+FERMAT_PRODUCTS = 364  # fq_inv: 254 squarings and 110 products (the set bits of q - 2)
+AFFINE_LANES = (4, 8, 16, 32)  # the L that csrc/precompute.cu instantiates
+
+
+def affine_lanes(n: int) -> int:
+    """K7 point_to_affine's L for n lanes, as csrc/precompute.cu affine_lanes."""
+    for lanes in (32, 16, 8):
+        if -(-n // lanes) >= 64 * 132:
+            return lanes
+    return 4
+
+
+def affine_bounds(n: int, finite: int, g2: bool, lanes: int) -> tuple:
+    """The bounds of point_to_affine over n lanes, `finite` of them not at
+    infinity: ((ms, by) of the batched inverse at L lanes a thread, (ms, by)
+    of the per-lane Fermat inversion it replaced). Both move 5 coordinates a
+    lane. The batched one does, a thread, L - 1 products forward, one
+    inversion and 2 (L - 1) backward, and a lane G2's norm (2), z^-1 from the
+    norm's inverse (G2: 2) and x z^-1, y z^-1 (2 or 6)."""
+    words = 16 if g2 else 8
+    moved = n * 5 * words * 4
+    threads = -(-n // lanes)
+    batched = (threads * (3 * (lanes - 1) + FERMAT_PRODUCTS) + finite * (8 if g2 else 2)
+               + (2 * n if g2 else 0))
+    fermat = n * ((2 + FERMAT_PRODUCTS + 2 + 6) if g2 else (FERMAT_PRODUCTS + 2))
+    return bound(moved, batched * MULS_PER_MONT), bound(moved, fermat * MULS_PER_MONT)
+
+
+def infinity_lanes(n: int) -> list:
+    """The lanes a point_to_affine check puts at infinity: lane 0 (the
+    identity a zkey plants), a run of 40 from lane 100, and each L's whole
+    group of thread 1 (lanes 1 + k ceil(n / L)), so that one thread's lanes
+    are all at infinity and others are mixed."""
+    lanes = {0, *range(100, 140)}
+    for count in AFFINE_LANES:
+        t = -(-n // count)
+        lanes |= {1 + k * t for k in range(count) if 1 + k * t < n}
+    return sorted(lane for lane in lanes if lane < n)
+
+
+def affine_lane_sweep(cases) -> dict:
+    """K7 point_to_affine at each L of AFFINE_LANES on the cases of
+    check_precompute (projective points and their plain affine form), through
+    the sweep entry of the kernel library: ms (CUDA events over 3 calls, the
+    points stacked beforehand) and word-for-word equality. Empty where the
+    library has no such entry (a tree before the batched inverse)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
+
+    if "snark_point_to_affine_lanes" not in kernels._SIGNATURES:
+        log("  point_to_affine L sweep: not in this tree's kernel library")
+        return {}
+    out = {}
+    for label, (g2, p, want) in cases.items():
+        src = jc.point_stack(p).contiguous()
+        n = src.shape[-1]
+        ax, ay = torch.empty_like(src[0]), torch.empty_like(src[0])
+
+        def call(lanes):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = kernels.lib().snark_point_to_affine_lanes(int(g2), lanes, ax.data_ptr(),
+                                                            ay.data_ptr(), src.data_ptr(), n,
+                                                            stream)
+            if err:
+                raise RuntimeError(f"point_to_affine_lanes: CUDA error {err}")
+
+        row = {}
+        for lanes in AFFINE_LANES:
+            ax.fill_(-1)
+            call(lanes)
+            same = max_word_err(ax, want[0]) == 0 and max_word_err(ay, want[1]) == 0
+            row[lanes] = {"ms": cuda_time(lambda: call(lanes), 3), "equal_to_plain": same}
+        out[label] = row
+        log(f"  point_to_affine L sweep, {label}: " + "; ".join(
+            f"L {k} {v['ms']:.4f} ms{'' if v['equal_to_plain'] else ' DIFFERS'}"
+            for k, v in row.items()) + f" (the wrapper takes L {affine_lanes(n)})")
+    return out
+
+
+def check_precompute(rep, rng, points, dev, c: int = 13, factor: int = 4, tables=None,
+                     chunk: int = 1 << 18, sweep: bool = False):
+    """K7's two kernels. point_dbl_k at the shape of the key's G1 and G2
+    points (`points`: the (x, y) of G1 and of G2) for the plan (c, f), against
+    its plain version word for word, the G2 kernel timed with its registers.
+    point_to_affine for G1 and G2 at the key's shape (the doubled points) and
+    at the device setup's chunk (K11's points from random scalars, `tables`
+    the setup's window tables, made here if not given), each with the lanes
+    of `infinity_lanes` at infinity (zero scalars in the chunk; a lane count
+    no L divides at the key's shape), word for word against its plain
+    version, timed beside the bound of the batched inverse and that of the
+    per-lane Fermat inversion it replaced; with `sweep`, each L
+    (`affine_lane_sweep`). Then `precompute_bases` (both kernels) against
+    host integers on the first G2 lanes. G2's doublings run on a pair of
+    threads a lane (csrc/curve_pair.cuh)."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -1132,49 +1220,88 @@ def check_precompute(rep, rng, points, dev, c: int = 13, factor: int = 4):
     from icicle_snark_tpu_torch.ops import msm
     from icicle_snark_tpu_torch.refmath import curve as cv
     from icicle_snark_tpu_torch.refmath.field import fq_from_mont
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
 
     ok = True
     shift = c * msm.merged_windows(c, factor)
+    cases = {}
     for g2 in (False, True):
         ops, plain = (jc.G2, jc.G2_PLAIN) if g2 else (jc.G1, jc.G1_PLAIN)
         tag = "g2" if g2 else "g1"
         x, y = points[g2]
         n = x.shape[-1]
         x, y = x.clone(), y.clone()
-        x[..., 0] = 0
-        y[..., 0] = 0  # the identity, as zkeys hold it
+        inf_idx = torch.tensor(infinity_lanes(n), device=dev)
+        x[..., inf_idx] = 0
+        y[..., inf_idx] = 0  # the identity, as zkeys hold it
         inf = ops.is_zero_lanes(x) & ops.is_zero_lanes(y)
         one = ops.const((1, 0) if g2 else 1, n, dev)
         p = (x, y, torch.where(inf, torch.zeros_like(one), one))
         got = jc.pdbl_k(ops, p, shift)
         want, dbl_plain = timed_once(lambda: jc.pdbl_k_plain(plain, p, shift))
         err_dbl = max(max_word_err(a, b) for a, b in zip(got, want))
-        ax, ay = jc.to_affine(ops, got)
-        (px, py), aff_plain = timed_once(lambda: jc.to_affine_plain(plain, got))
-        err_aff = max(max_word_err(ax, px), max_word_err(ay, py))
-        inf_ok = bool(lb.is_zero(ax[..., :1]).all() and lb.is_zero(ay[..., :1]).all())
-        log(f"  point_dbl_k {tag} k = {shift}, {n} lanes: max word err {err_dbl}; "
-            f"point_to_affine: max word err {err_aff}, infinity -> (0, 0) {inf_ok}")
-        ok &= err_dbl == 0 and err_aff == 0 and inf_ok
-        if not g2:
-            continue
-        dbl_ms = cuda_time(lambda: jc.pdbl_k(ops, p, shift), 3)
-        aff_ms = cuda_time(lambda: jc.to_affine(ops, got), 3)
-        muls = FQ_MULS[tag]["dbl"] * MULS_PER_MONT
-        b_dbl = bound(2 * n * 3 * 64, n * shift * muls)
-        # z^-1: the norm (2 products), 254 squarings + 110 products, 2 to
-        # finish the Fq2 inverse; then x z^-1 and y z^-1 (3 products each)
-        b_aff = bound(n * 5 * 64, n * (2 + 364 + 2 + 6) * MULS_PER_MONT)
-        usage = kernel_usage("precompute.cu", "point_dbl_k")
-        log(f"  point_dbl_k g2, {n} lanes, k = {shift}: {dbl_ms:.3f} ms (bound {b_dbl[0]:.3f}, "
-            f"{b_dbl[1]}; plain {dbl_plain:.0f} ms); {usage}")
-        rep.add(kernels.POINT_DBL_K.name, equal_to_plain=err_dbl == 0, max_abs_err=err_dbl,
-                ms=dbl_ms, plain_ms=dbl_plain, bound_ms=b_dbl[0], bound_by=b_dbl[1],
-                timed=f"g2, {n} lanes, k = {shift} doublings (plan c {c}, f {factor})",
-                build=usage)
-        rep.add(kernels.POINT_TO_AFFINE.name, equal_to_plain=err_aff == 0 and inf_ok,
-                max_abs_err=err_aff, ms=aff_ms, plain_ms=aff_plain, bound_ms=b_aff[0],
-                bound_by=b_aff[1], timed=f"g2, {n} lanes")
+        log(f"  point_dbl_k {tag} k = {shift}, {n} lanes: max word err {err_dbl}")
+        ok &= err_dbl == 0
+        cases[f"{tag}, key's shape, {n} lanes"] = (g2, got)
+        if g2:
+            dbl_ms = cuda_time(lambda: jc.pdbl_k(ops, p, shift), 3)
+            muls = FQ_MULS[tag]["dbl"] * MULS_PER_MONT
+            b_dbl = bound(2 * n * 3 * 64, n * shift * muls)
+            usage = kernel_usage("precompute.cu", "point_dbl_k")
+            log(f"  point_dbl_k g2, {n} lanes, k = {shift}: {dbl_ms:.3f} ms (bound "
+                f"{b_dbl[0]:.3f}, {b_dbl[1]}; plain {dbl_plain:.0f} ms); {usage}")
+            rep.add(kernels.POINT_DBL_K.name, equal_to_plain=err_dbl == 0, max_abs_err=err_dbl,
+                    ms=dbl_ms, plain_ms=dbl_plain, bound_ms=b_dbl[0], bound_by=b_dbl[1],
+                    timed=f"g2, {n} lanes, k = {shift} doublings (plan c {c}, f {factor})",
+                    build=usage)
+        del want
+    # the setup's chunk: K11's projective points, zero scalars at infinity
+    if tables is None:
+        _, tables = setup_tables(dev)
+    words = random_scalars(rng, chunk)
+    words[infinity_lanes(chunk)] = 0
+    sc = lb.words_to_limbs(words, dev)
+    for g2 in (False, True):
+        ops = jc.G2 if g2 else jc.G1
+        cases[f"{'g2' if g2 else 'g1'}, setup chunk, {chunk} lanes"] = (
+            g2, fs.fixed_base_msm(sc, tables[g2], ops))
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "fermat_bound_ms": 0.0}
+    worst, parts, chunk_by = 0.0, [], None
+    for label, (g2, proj) in cases.items():
+        ops, plain = (jc.G2, jc.G2_PLAIN) if g2 else (jc.G1, jc.G1_PLAIN)
+        n = proj[0].shape[-1]
+        inf_at = infinity_lanes(n)
+        ax, ay = jc.to_affine(ops, proj)
+        (px, py), aff_plain = timed_once(lambda: jc.to_affine_plain(plain, proj))
+        err = max(max_word_err(ax, px), max_word_err(ay, py))
+        inf_ok = bool(lb.is_zero(ax[..., inf_at]).all() and lb.is_zero(ay[..., inf_at]).all())
+        finite = n - int(ops.is_zero_lanes(proj[2]).sum())
+        lanes = affine_lanes(n)
+        (bms, by), (fms, _) = affine_bounds(n, finite, g2, lanes)
+        ms = cuda_time(lambda: jc.to_affine(ops, proj), 3)
+        log(f"  point_to_affine {label} ({n - finite} at infinity), L {lanes}: max word err "
+            f"{err}, infinity -> (0, 0) {inf_ok}; {ms:.4f} ms (bound {bms:.4f}, {by}; the "
+            f"per-lane Fermat design's bound {fms:.4f}; plain {aff_plain:.0f} ms)")
+        ok &= err == 0 and inf_ok
+        worst = max(worst, err)
+        parts.append(f"{label}: {ms:.4f} ms (bound {bms:.4f}, Fermat bound {fms:.4f}, plain "
+                     f"{aff_plain:.0f})")
+        if "chunk" in label:
+            chunk_by = by
+            for key, val in (("ms", ms), ("plain_ms", aff_plain), ("bound_ms", bms),
+                             ("fermat_bound_ms", fms)):
+                row[key] += val
+        cases[label] = (g2, proj, (px, py))
+    usage = kernel_usage("precompute.cu", "point_to_affine")
+    log(f"  point_to_affine build: {usage}")
+    rep.add(kernels.POINT_TO_AFFINE.name, equal_to_plain=worst == 0 and ok, max_abs_err=worst,
+            bound_by=chunk_by, build=usage,
+            timed="G1 + G2 at the setup's chunk of " + str(chunk) + " lanes (ms, plain_ms, "
+                  "bound_ms, fermat_bound_ms sum those two); " + "; ".join(parts), **row)
+    if sweep:
+        rep.add(kernels.POINT_TO_AFFINE.name, lane_sweep=affine_lane_sweep(cases))
+    del cases
+    torch.cuda.empty_cache()
     # both kernels through precompute_bases, against host integers
     lanes = 6
     x, y = (t[..., :lanes].clone() for t in points[True])
@@ -2574,7 +2701,7 @@ KERNEL_FUNCTIONS = {
     "point_to_affine": ("point_to_affine_kernel",),
     "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
     "field_reduce": ("field_reduce_kernel",),
-    "fixed_base_msm": ("fixed_base_kernel",),
+    "fixed_base_msm": ("fixed_base_kernel", "fixed_base_g1_kernel"),
     "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_stage_n_kernel",),
     # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>),
     # the tree of csrc/msm_kernels_n.cuh
@@ -2637,25 +2764,56 @@ def make_fixture(directory: str, n_constraints: int, device, timer=None):
 def drive_setup(tag, directory, n_constraints, dev, counts_log, failures) -> dict:
     """make_fixture as a driven path: the device setup's phases (s) and
     launches (K11 for the fixed-base points, K7 for their affine form, K1
-    never). When the directory holds the fixture already nothing runs."""
+    never), g1_points and g2_points split into the device time of their K11
+    and K7 calls (CUDA events around each call) and the host rest. When the
+    directory holds the fixture already nothing runs."""
+    import torch
+
     from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.curve import jcurve as jc
     from icicle_snark_tpu_torch.prover import pipeline
+    from icicle_snark_tpu_torch.setup import fast_setup as fs
+
+    spans = []
+
+    def timed(kernel, fn, ops_of):
+        def call(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((kernel, ops_of(args).g2, start, end))
+            return out
+        return call
 
     timer = pipeline.PhaseTimer(dev)
     kernels.reset_counts()
     t0 = time.perf_counter()
-    _, paths = make_fixture(directory, n_constraints, dev, timer)
+    with patched((fs, "fixed_base_msm", timed("fixed_base_msm", fs.fixed_base_msm,
+                                              lambda a: a[2])),
+                 (jc, "to_affine", timed("point_to_affine", jc.to_affine, lambda a: a[0]))):
+        _, paths = make_fixture(directory, n_constraints, dev, timer)
     secs = time.perf_counter() - t0
+    split = {}
     if timer.phases:
         counts_log[f"setup {tag}"] = kernels.counts()
         if counts_log[f"setup {tag}"]["fixed_base_msm"] == 0:
             failures.append(f"the setup of {tag} did not launch fixed_base_msm")
         if counts_log[f"setup {tag}"]["field_vec"]:
             failures.append(f"the setup of {tag} launched field_vec")
+        torch.cuda.synchronize()
+        for phase, g2 in (("g1_points", False), ("g2_points", True)):
+            ms = {k: sum(s.elapsed_time(e) for name, is_g2, s, e in spans
+                         if name == k and is_g2 == g2)
+                  for k in ("fixed_base_msm", "point_to_affine")}
+            chunks = sum(1 for name, is_g2, _, _ in spans
+                         if name == "fixed_base_msm" and is_g2 == g2)
+            split[phase] = {**{f"{k}_ms": v for k, v in ms.items()}, "chunks": chunks,
+                            "host_s": timer.phases.get(phase, 0.0) - sum(ms.values()) / 1e3}
     log(f"[setup] {tag} fixture in {secs:.1f} s, phases "
-        + json.dumps({k: round(v, 3) for k, v in timer.phases.items()}) + ", launches "
-        + json.dumps(counts_log.get(f"setup {tag}")))
-    return {"paths": paths, "s": secs, "phases": timer.phases}
+        + json.dumps({k: round(v, 3) for k, v in timer.phases.items()}) + ", kernel / host "
+        + json.dumps(split) + ", launches " + json.dumps(counts_log.get(f"setup {tag}")))
+    return {"paths": paths, "s": secs, "phases": timer.phases, "split": split}
 
 
 def setup_routes(args, dev) -> int:
@@ -2943,15 +3101,16 @@ def curves_msm_only(dev, rng, card) -> int:
 
 
 def precompute_only(dev, rng, card, lanes: int = 100003) -> int:
-    """--precompute-only: K7 (point_dbl_k and point_to_affine at the
-    complex-100k key's G1 and G2 shape, plan (13, 4)) and K11 (one setup
-    chunk, G1 and G2) against their plain versions, timed with their
-    registers and spills. The points are k_i * G, made by K11 and K7 from
-    random scalars. It calls only entry points that earlier trees of the
-    port have too (fast_setup.fixed_base_msm, jcurve.to_affine and
-    pdbl_k), so a copy of this script run in an unpacked earlier tree
-    measures that tree's kernels. Writes chip_smoke_precompute.json into
-    OUT_DIR."""
+    """--precompute-only: K7 (point_dbl_k at the complex-100k key's G1 and G2
+    shape, plan (13, 4); point_to_affine there and at the setup's 2^18-lane
+    chunk, G1 and G2, with its L sweep) and K11 (one setup chunk, G1 and G2)
+    against their plain versions, timed with their registers and spills.
+    The points are k_i * G, made by K11 and K7 from random scalars. Its
+    checks call only entry points that earlier trees of the port have too
+    (fast_setup.fixed_base_msm, jcurve.to_affine and pdbl_k); the L sweep
+    runs where the kernel library has its entry. So a copy of this script
+    run in an unpacked earlier tree measures that tree's kernels. Writes
+    chip_smoke_precompute.json into OUT_DIR."""
     from icicle_snark_tpu_torch import kernels
     from icicle_snark_tpu_torch.curve import jcurve as jc
     from icicle_snark_tpu_torch.fields import limbs as lb
@@ -2968,10 +3127,13 @@ def precompute_only(dev, rng, card, lanes: int = 100003) -> int:
                                                          tables[g2], ops))
     rep, failures = Report(), []
     warm_card(dev)
-    if not check_precompute(rep, rng, points, dev):
+    if not check_precompute(rep, rng, points, dev, tables=tables, sweep=True):
         failures.append("kernel point_dbl_k or point_to_affine differs from its plain version")
     if not check_fixed_base(rep, rng, dev, fbs, tables):
         failures.append("kernel fixed_base_msm differs from its plain version")
+    sweep = rep.rows.get(kernels.POINT_TO_AFFINE.name, {}).get("lane_sweep", {})
+    if not all(v["equal_to_plain"] for row in sweep.values() for v in row.values()):
+        failures.append("point_to_affine differs from its plain version at some L")
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "library_ms": None, **rep.rows.get(k.name, {})}
             for k in (kernels.POINT_DBL_K, kernels.POINT_TO_AFFINE, kernels.FIXED_BASE)]
@@ -3350,6 +3512,7 @@ def main() -> int:
             "bound_by": row.get("bound_by"), "library_ms": None,
             "equal_to_plain": row.get("equal_to_plain"), "timed": row.get("timed"),
             **({"large": row["large"]} if "large" in row else {}),
+            **({"fermat_bound_ms": row["fermat_bound_ms"]} if "fermat_bound_ms" in row else {}),
             # device ms in one profiled warm prove, complex-N and complex-M
             "prove_device_ms": [sum(v for name, v in pr["kernels_ms"].items()
                                     if any(f in name for f in KERNEL_FUNCTIONS[k.name]))
@@ -3359,13 +3522,15 @@ def main() -> int:
             failures.append(f"kernel {k.name} was not held against its plain version")
     summary = {
         "card": card, "constraints": n, "setup_s": setup_small["s"],
-        "setup_phases": setup_small["phases"], "op_surface": ops_readings,
+        "setup_phases": setup_small["phases"], "setup_split": setup_small["split"],
+        "op_surface": ops_readings,
         "cold_cache_s": cold_cache_s, "first_prove_s": first_s,
         "warm_prove_s": warm, "warm_phases": phases_small, "launches": launches, "profile": prof,
         "bits_prove": bits_small, "coset": coset_small, "ptxas": usage, "sass": sass,
         "plan_13_4": {"cold_cache_s": plan_cache_s, "prove_s": plan_s, "same_proof": same_plan},
         "msm_plan_ms": plan_ms, "ntt_threshold_sweep": sweep,
         "large": {"constraints": m, "setup_s": big_setup_s, "setup_phases": setup_big["phases"],
+                  "setup_split": setup_big["split"],
                   "cold_cache_s": big_cold_s,
                   "first_prove_s": big_first_s, "warm_prove_s": big_warm,
                   "warm_phases": phases_big, "coset": coset_big, "fused_passes_ms": fused_ms,

@@ -12,15 +12,11 @@
 //                    of threads, each holding one Fq component of x, y and z
 //                    (curve_pair.cuh pair_dbl, inlined: one call site), so
 //                    the 48-word point stays in registers across the loop.
-//   point_to_affine: z^-1 per lane by Fermat, square-and-multiply over the
-//                    bits of q - 2 held in __constant__ memory, then x z^-1,
-//                    y z^-1. z = 0 gives 0^(q-2) = 0 and so (0, 0), the
-//                    affine encoding of infinity, with no branch. G2 inverts
-//                    through the norm: (a + bu)^-1 = (a - bu) / (a^2 + b^2).
-// The TPU version inverted a whole batch with the Montgomery trick because a
-// per-lane exponentiation was 380 full-width graph steps; a Hopper thread
-// runs the 254 squarings and 110 products (the set bits of q - 2) out of
-// registers, and lanes stay independent.
+//   point_to_affine: a batched inverse over L lanes a thread, as the TPU
+//                    version's batch_inv (affine_batch.cuh): one Fermat
+//                    inversion a thread instead of one a lane. z = 0 gives
+//                    (0, 0), the affine encoding of infinity. L is chosen
+//                    from n (affine_lanes).
 //
 // Projective results of the same formulas and affine coordinates are unique
 // canonical words, so both entries equal their plain versions (jcurve.pdbl
@@ -28,14 +24,11 @@
 //
 // Bound: operations. G2 at complex-100k with (c, f) = (13, 4): shift = 65
 // doublings x 27 Fq products (the Karatsuba count; the pair does 32, two
-// squares at one product a thread) + one inversion (about 370 products) per
-// lane and copy, against 384 bytes per lane. Registers and spills of each
-// kernel are printed by -Xptxas -v at build.
+// squares at one product a thread) a lane and copy, against 384 bytes a lane;
+// point_to_affine's in affine_batch.cuh. Registers and spills of each kernel
+// are printed by -Xptxas -v at build.
+#include "affine_batch.cuh"
 #include "curve_pair.cuh"
-
-// q - 2, little-endian words
-__constant__ u32 Q_MINUS_2[8] = {0xd87cfd45u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
-                                 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 
 __global__ void point_dbl_k_kernel(u32* __restrict__ out, const u32* __restrict__ in,
                                    long long n, int k) {
@@ -59,35 +52,13 @@ __global__ void point_dbl_k_pair_kernel(u32* __restrict__ out, const u32* __rest
   pair_store(out, n, i, pl, p);
 }
 
-// a^(q-2): the Montgomery form of a^-1 (0 for a = 0)
-__device__ __noinline__ E1 fq_inv(const E1& a) {
-  E1 acc;
-  e_set_one(acc);
-#pragma unroll 1
-  for (int bit = 253; bit >= 0; bit--) {
-    acc = e_mul(acc, acc);
-    if ((Q_MINUS_2[bit >> 5] >> (bit & 31)) & 1) acc = e_mul(acc, a);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ E1 e_inv(const E1& a) { return fq_inv(a); }
-
-__device__ __forceinline__ E2 e_inv(const E2& a) {
-  E1 norm = e_add(e_mul(a.c0, a.c0), e_mul(a.c1, a.c1));
-  E1 ninv = fq_inv(norm);
-  return {e_mul(a.c0, ninv), e_mul(e_neg(a.c1), ninv)};
-}
-
-template <class E>
+template <class E, int L>
 __global__ void point_to_affine_kernel(u32* __restrict__ ox, u32* __restrict__ oy,
                                        const u32* __restrict__ in, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Pt<E> p = p_load<E>(in, n, i);
-  E zi = e_inv(p.z);
-  e_store(ox, n, i, e_mul(p.x, zi));
-  e_store(oy, n, i, e_mul(p.y, zi));
+  long long T = (n + L - 1) / L;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  affine_batch_thread<E, L>(ox, oy, in, n, t, T);
 }
 
 // out, in: (3, C, 8, n)
@@ -105,16 +76,45 @@ extern "C" int snark_point_dbl_k(int g2, void* out, const void* in, long long n,
   return (int)cudaGetLastError();
 }
 
+template <class E>
+static void affine_launch(int lanes, u32* ox, u32* oy, const u32* in, long long n,
+                          cudaStream_t s) {
+  int threads = 128;
+  long long T = (n + lanes - 1) / lanes;
+  long long blocks = (T + threads - 1) / threads;
+  switch (lanes) {
+    case 4: point_to_affine_kernel<E, 4><<<blocks, threads, 0, s>>>(ox, oy, in, n); break;
+    case 8: point_to_affine_kernel<E, 8><<<blocks, threads, 0, s>>>(ox, oy, in, n); break;
+    case 16: point_to_affine_kernel<E, 16><<<blocks, threads, 0, s>>>(ox, oy, in, n); break;
+    default: point_to_affine_kernel<E, 32><<<blocks, threads, 0, s>>>(ox, oy, in, n); break;
+  }
+}
+
+// L for n lanes: the largest of 32, 16, 8, 4 that still gives 64 threads to
+// each of an H100's 132 SMs, else 4. A thread's chain (364 products of its
+// inversion, 3 (L - 1) around it) is latency-bound at one or two warps a
+// scheduler, so more lanes a thread only pay while the grid fills the card.
+static int affine_lanes(long long n) {
+  for (int lanes = 32; lanes > 4; lanes /= 2)
+    if ((n + lanes - 1) / lanes >= 64LL * 132) return lanes;
+  return 4;
+}
+
+// ox, oy: (C, 8, n); in: (3, C, 8, n); lanes: L (4, 8, 16 or 32)
+extern "C" int snark_point_to_affine_lanes(int g2, int lanes, void* ox, void* oy, const void* in,
+                                           long long n, void* stream) {
+  if (n == 0) return 0;
+  if (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g2)
+    affine_launch<E2>(lanes, (u32*)ox, (u32*)oy, (const u32*)in, n, s);
+  else
+    affine_launch<E1>(lanes, (u32*)ox, (u32*)oy, (const u32*)in, n, s);
+  return (int)cudaGetLastError();
+}
+
 // ox, oy: (C, 8, n); in: (3, C, 8, n)
 extern "C" int snark_point_to_affine(int g2, void* ox, void* oy, const void* in, long long n,
                                      void* stream) {
-  if (n == 0) return 0;
-  int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (g2)
-    point_to_affine_kernel<E2><<<blocks, threads, 0, s>>>((u32*)ox, (u32*)oy, (const u32*)in, n);
-  else
-    point_to_affine_kernel<E1><<<blocks, threads, 0, s>>>((u32*)ox, (u32*)oy, (const u32*)in, n);
-  return (int)cudaGetLastError();
+  return snark_point_to_affine_lanes(g2, affine_lanes(n), ox, oy, in, n, stream);
 }

@@ -150,6 +150,9 @@ _SIGNATURES = {
     "snark_point_dbl_k": [_I, _VP, _VP, _LL, _I, _VP],
     # g2, out_x, out_y, in, n, stream
     "snark_point_to_affine": [_I, _VP, _VP, _VP, _LL, _VP],
+    # g2, lanes a thread (4, 8, 16, 32), out_x, out_y, in, n, stream (the chip
+    # script's sweep; snark_point_to_affine chooses the lanes from n)
+    "snark_point_to_affine_lanes": [_I, _I, _VP, _VP, _VP, _LL, _VP],
     # op, width, out, x, y, n, depth, stream
     "snark_probe_chain": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP],
     # field, out, a, exponent (8 host words), nbits, nb, n, stream
@@ -232,7 +235,8 @@ POINT_DBL_K = Kernel(
     "icicle_snark_tpu/ops/msm.py:431",
 )
 POINT_TO_AFFINE = Kernel(
-    "point_to_affine", "snark_point_to_affine", "icicle_snark_tpu_torch/csrc/precompute.cu",
+    "point_to_affine", "snark_point_to_affine",
+    "icicle_snark_tpu_torch/csrc/affine_batch.cuh; icicle_snark_tpu_torch/csrc/precompute.cu",
     "icicle_snark_tpu/ops/msm.py:414",
 )
 PROBE = Kernel(
@@ -248,7 +252,8 @@ FIELD_REDUCE = Kernel(
     "icicle_snark_tpu/ops/vec_ops.py:68",
 )
 FIXED_BASE = Kernel(
-    "fixed_base_msm", "snark_fixed_base_msm", "icicle_snark_tpu_torch/csrc/fixed_base.cu",
+    "fixed_base_msm", "snark_fixed_base_msm",
+    "icicle_snark_tpu_torch/csrc/fixed_base.cu; icicle_snark_tpu_torch/csrc/fq_lazy.cuh",
     "icicle_snark_tpu/setup/fast_setup.py:81",
 )
 # The other curves (bls12-377, bls12-381, bw6-761)

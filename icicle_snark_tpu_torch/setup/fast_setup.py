@@ -7,10 +7,12 @@ per constraint). As in icicle_snark_tpu/setup/fast_setup.py:
     (32 x 256 points per group),
   * the device looks up T[w][digit_w(k_i)] and mixed-adds over 32 windows,
     n lanes in parallel: one K11 launch per chunk of lanes
-    (`fixed_base_msm`, csrc/fixed_base.cu, one thread a lane); its plain
-    version `fixed_base_msm_plain` is the 32-step scan of gathers and
-    plain-torch `pmadd`,
-  * projective -> affine by a per-lane Fermat inverse (K7 point_to_affine),
+    (`fixed_base_msm`, csrc/fixed_base.cu, one thread a lane; G1 in lazy
+    Fq arithmetic, csrc/fq_lazy.cuh); its plain version
+    `fixed_base_msm_plain` is the 32-step scan of gathers and plain-torch
+    `pmadd`,
+  * projective -> affine by a batched inverse, one Fermat inversion for
+    several lanes (K7 point_to_affine, csrc/affine_batch.cuh),
   * coordinates come back Montgomery-form and are written to the zkey
     byte-for-byte identical to the host oracle's output.
 """
