@@ -39,8 +39,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
   6. the op surface (ops/vec_ops.py, ops/ntt.py `ntt`, ops/msm.py
      `msm_g1`/`msm_g2`, config.py, runtime.py): K9 (field_pow) over 2^24 Fr
      lanes, K10 (field_reduce) over 2^24 and on odd, single, batched and
-     all-(p-1) rows, K11 (fixed_base_msm) at the setup's 2^18-lane chunk
-     (G1 and G2), K4 at c = 8, 10, 12, 16, each against its plain version
+     all-(p-1) rows (the product's grid swept), K11 (fixed_base_msm) at the
+     setup's 2^18-lane chunk (G1 and G2), K4 at c = 8, 10, 12, 16, each against its plain version
      word for word and timed; then the op surface driven at users' sizes
      (vec-ops over 2^24, ntt at 2^22 and (3, 2^21) in every ordering with
      and without a coset, msm_g1 over 2^22 and msm_g2 over 2^20 lanes at
@@ -73,18 +73,22 @@ Phases, each fatal on failure (nonzero exit, no result line):
      bw6-761) through the pipeline `curves/device.py` `msm` runs, equal in
      affine form to the host's sum over the 64-point pool, timed (K13's
      accumulate levels and reduce stages apart, `k13_times`); `msm()`
-     itself at 2^16 lanes from host lists; K14 (ntt_stage_n) over the three
-     Fr: the pair against the plain stages at 2^12 and at 2^22, 2^4 against
-     a host DFT, the round trip and a coset round trip through
-     `ntt(spec=...)` at 2^22, timed; K16 (field_pow_n) on the five fields
+     itself at 2^16 lanes from host lists; K14 over the three Fr, its passes
+     (ntt_block_n, the default route) and its one-stage kernel
+     (ntt_stage_n, forced): the pair on each route against the other and
+     against the plain stages and plain passes at 2^12 (batch 2) and at
+     2^22, 2^4 against a host DFT, the round trip and a coset round trip
+     through `ntt(spec=...)` at 2^22 on the passes and the round trip on
+     the one-stage route, both routes timed and the passes at three tiles;
+     K16 (field_pow_n) on the five fields
      word for word against its plain version (the inverse over 2^24, 2^22
      and 2^20 lanes at 8, 12 and 24 words, the plain version on 2^12; other
      exponents, one wider than the kernel's 768 bits; div), timed; K17
      (field_reduce_n): the sum over a 2^24 row at every field and the
      product at the two 8-word Fr, with odd, single, batched and all-(p-1)
-     rows, timed; inv, div, sum_reduce and product_reduce driven over each
-     field and held against compositions; the launches counted are those of
-     the driven calls alone;
+     rows, timed, the product's grid swept; inv, div, sum_reduce and
+     product_reduce driven over each field and held against compositions;
+     the launches counted are those of the driven calls alone;
   11. the sharded prove (parallel/, `multichip_phase`): K15 (the four-step
      NTT's twiddle pass) against its plain version word for word at every
      shard shape the proves below give it (2^M over 2, 4 and 8 shards and
@@ -1420,6 +1424,43 @@ def check_field_pow(rep, rng, dev, n: int = 1 << 24, n_plain: int = 1 << 18):
     return ok
 
 
+# blocks an SM of the product reduction's first launch, timed beside the default
+PRODUCT_SWEEP = (1, 2, 3, 4)
+
+
+def product_grid(n: int, dev) -> str:
+    """The product's first launch over one row of n, as a line; the
+    accumulators a thread as csrc/field_product.cuh defines them."""
+    import re
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+
+    with open(os.path.join(kernels.CSRC, "field_product.cuh")) as fh:
+        acc = re.search(r"#define PRODUCT_ACC (\d+)", fh.read()).group(1)
+    sms = vo.sm_count(dev)
+    blocks = vo.product_blocks(1, n, sms)
+    return (f"{blocks} blocks of {vo.PRODUCT_THREADS} threads ({vo.PRODUCT_BLOCKS_PER_SM} an SM "
+            f"on {sms} SMs), {acc} accumulators a thread, "
+            f"{n / (blocks * vo.PRODUCT_THREADS):.1f} elements a thread; then one block over the "
+            f"{blocks} partials")
+
+
+def product_sweep(v, spec, want) -> tuple:
+    """The product over the row v at each blocks-an-SM of PRODUCT_SWEEP:
+    (every variant equal to `want`, {variant: ms})."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import vec_ops as vo
+
+    ok, times = True, {}
+    for per_sm in PRODUCT_SWEEP:
+        with patched((vo, "PRODUCT_BLOCKS_PER_SM", per_sm)):
+            ok &= bool(torch.equal(vo.field_reduce(1, v, spec), want))
+            times[f"{per_sm} an SM"] = cuda_time(lambda: vo.field_reduce(1, v, spec), 10)
+    return ok, times
+
+
 def check_field_reduce(rep, rng, dev, n: int = 1 << 24):
     """K10 against its plain version: the sum and the product over one row
     of n Fr values, an odd row (n - 3), n = 1, a 2-D batch (2, 3, 8, 4097),
@@ -1439,7 +1480,7 @@ def check_field_reduce(rep, rng, dev, n: int = 1 << 24):
              ("2-D batch", random_field(rng, fr.modulus, (2, 3, 4097), dev), fr),
              ("p - 1 only", torch.stack([top, top]), fr),
              ("Fq batch", random_field(rng, fq.modulus, (3, 70001), dev), fq)]
-    ok, worst, plain = True, 0.0, {}
+    ok, worst, plain, want_row = True, 0.0, {}, None
     for label, v, spec in cases:
         for op in (0, 1):
             got = vo.field_reduce(op, v, spec)
@@ -1447,6 +1488,7 @@ def check_field_reduce(rep, rng, dev, n: int = 1 << 24):
             err = max_word_err(got, want)
             if label == "row of n":
                 plain[op] = ms_p
+                want_row = want if op else want_row
             worst = max(worst, err)
             ok &= err == 0 and got.shape == v.shape[:-1] + (1,)
             log(f"  field_reduce {'product' if op else 'sum'} {label} {tuple(v.shape)}: max word "
@@ -1455,14 +1497,20 @@ def check_field_reduce(rep, rng, dev, n: int = 1 << 24):
     prod_ms = cuda_time(lambda: vo.field_reduce(1, full, fr), 10)
     b_sum = bound(n * 32 + 32, 0)
     b_prod = bound(n * 32 + 32, (n - 1) * MULS_PER_MONT)
+    grid = product_grid(n, dev)
+    swept, sweep = product_sweep(full, fr, want_row)
+    ok &= swept
+    usage = kernel_usage("field_reduce.cu", "")
     rep.add(kernels.FIELD_REDUCE.name, equal_to_plain=ok, max_abs_err=worst,
             ms=sum_ms + prod_ms, plain_ms=plain[0] + plain[1], bound_ms=b_sum[0] + b_prod[0],
-            bound_by=b_prod[1],
+            bound_by=b_prod[1], product_grid=grid, product_sweep_ms=sweep, build=usage,
             timed=f"Fr sum_reduce + product_reduce over one row of {n}: sum {sum_ms:.4f} ms "
                   f"(bound {b_sum[0]:.4f}, {b_sum[1]}), product {prod_ms:.4f} ms (bound "
                   f"{b_prod[0]:.4f}, {b_prod[1]})")
     log(f"  field_reduce over {n}: sum {sum_ms:.4f} ms (bound {b_sum[0]:.4f}), product "
-        f"{prod_ms:.4f} ms (bound {b_prod[0]:.4f})")
+        f"{prod_ms:.4f} ms (bound {b_prod[0]:.4f}); product grid: {grid}; swept (each equal: "
+        f"{swept}): " + json.dumps(sweep))
+    log(f"  field_reduce build: {usage}")
     return ok
 
 
@@ -2165,15 +2213,37 @@ def _plain_pair(x, dom, spec):
     return f, i
 
 
+def _pass_plain_pair(x, dom, spec):
+    """The same pair through the plain passes (ntt_block_n_plain), pass by
+    pass as K14's passes run it."""
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+
+    passes = ntt_ops.ntt_n_passes(dom.log_n)
+    f, i = x, x
+    for low, k, _ in passes:
+        f = ntt_ops.ntt_block_n_plain(f, dom.stw_fwd, low, k, False, spec)
+    for low, k, _ in reversed(passes):
+        i = ntt_ops.ntt_block_n_plain(i, dom.stw_inv, low, k, True, spec,
+                                      dom.n_inv_mont if low == 0 else None)
+    return f, i
+
+
+# K14's passes timed at these (tile, fewest columns) logs beside the default
+NTT_N_TILES = ((10, 4), (10, 5), (11, 5))
+
+
 def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12) -> tuple:
-    """K14 for the three Fr: the transform pair against the plain stages
-    word for word, at 2^plain_log (batch 2) and at 2^log_n (the plain stages
-    run on the card); at 2^4 against a host DFT; then driven at 2^log_n:
-    forward then inverse = identity, and `ntt(x, spec=fr,
-    cfg=NTTConfig(coset_gen))` forward then inverse = identity; the pair
-    timed at 2^log_n beside its bound. The domains' power tables and the
-    coset products run on K12. Only the driven calls are counted
-    (`counted`)."""
+    """K14 for the three Fr: the transform pair through the passes (the
+    default from NTT_BLOCK_MIN_LOG up) against the one-stage route (the
+    constant patched past the domain), the plain stages and the plain
+    passes, word for word, at 2^plain_log (batch 2) and at 2^log_n (the
+    plain versions run on the card); at 2^4 against a host DFT; then driven
+    at 2^log_n: forward then inverse = identity, and `ntt(x, spec=fr,
+    cfg=NTTConfig(coset_gen))` forward then inverse = identity, on the
+    passes, and the round trip once more on the one-stage route; both
+    routes' pairs timed at 2^log_n beside the bound, and the passes at the
+    tiles of NTT_N_TILES. The domains' power tables and the coset products
+    run on K12. Only the driven calls are counted (`counted`)."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -2182,18 +2252,33 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
     from icicle_snark_tpu_torch.fields import limbs as lb
     from icicle_snark_tpu_torch.ops import ntt as ntt_ops
 
+    def stage_route():
+        return patched((ntt_ops, "NTT_BLOCK_MIN_LOG", 99))
+
+    def pair(x, dom):
+        return ntt_ops.ntt_dit(x, dom), ntt_ops.intt_dif(x, dom)
+
+    def same(a, b):
+        return all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+
     ok, out = True, {}
     launched = counts_log["curves: NTTs"] = {}
+    launched_stage = counts_log["curves: NTTs, one-stage route"] = {}
     for name in CURVES:
         fr = cdev.curve_specs(name)[1]
         w = fr.words
-        # against the plain stages, batched
+        passes = ntt_ops.ntt_n_passes(log_n)
+        tile = ntt_ops.NTT_N_TILE_LOG
+        mode = "lazy in [0, 2p)" if ntt_ops.block_n_lazy(fr) else "canonical"
+        # against the one-stage route and both plain versions, batched
         dom = ntt_ops.get_domain(plain_log, dev, fr)
         x = random_field_n(gen, fr, (2, 1 << plain_log), dev)
-        fk, ik = ntt_ops.ntt_dit(x, dom), ntt_ops.intt_dif(x, dom)
-        fp, ip = _plain_pair(x, dom, fr)
-        same_small = bool(torch.equal(fk, fp)) and bool(torch.equal(ik, ip))
-        del x, fk, ik, fp, ip
+        got = pair(x, dom)
+        with stage_route():
+            staged = pair(x, dom)
+        same_small = (same(got, staged) and same(got, _plain_pair(x, dom, fr))
+                      and same(got, _pass_plain_pair(x, dom, fr)))
+        del x, got, staged
         # against a host DFT at 2^4
         d4 = ntt_ops.get_domain(4, dev, fr)
         x4 = random_field_n(gen, fr, (1, 16), dev)
@@ -2201,15 +2286,23 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
         y4 = [v * fr.rinv % fr.modulus for v in lb.limbs_to_ints(ntt_ops.ntt_natural(x4, d4)[0])]
         same_dft = y4 == [sum(vals[j] * pow(d4.w, i * j, fr.modulus) for j in range(16))
                           % fr.modulus for i in range(16)]
-        # users' size: every stage against the plain stages on the same input
+        # users' size: the same, the plain versions on the same input
         big = ntt_ops.get_domain(log_n, dev, fr)
         xb = random_field_n(gen, fr, (1, 1 << log_n), dev)
-        fk, ik = ntt_ops.ntt_dit(xb, big), ntt_ops.intt_dif(xb, big)
-        (fp, ip), plain_ms = timed_once(lambda: _plain_pair(xb, big, fr))
-        same_big = bool(torch.equal(fk, fp)) and bool(torch.equal(ik, ip))
-        del fk, ik, fp, ip
+        got = pair(xb, big)
+        with stage_route():
+            staged = pair(xb, big)
+        same_stage = same(got, staged)
+        del staged
+        plain, plain_ms = timed_once(lambda: _plain_pair(xb, big, fr))
+        same_big = same_stage and same(got, plain)
+        del plain
+        plain, pass_plain_ms = timed_once(lambda: _pass_plain_pair(xb, big, fr))
+        same_big &= same(got, plain)
+        del plain
         torch.cuda.empty_cache()
-        # the driven calls: the round trip and a coset
+        # the driven calls: the round trip and a coset on the passes, the
+        # round trip on the one-stage route
         back = counted(launched, lambda: ntt_ops.ntt_natural(ntt_ops.ntt_natural(xb, big), big,
                                                              inverse=True))
         same_trip = bool(torch.equal(back, xb))
@@ -2217,8 +2310,23 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
         coset = counted(launched, lambda: ntt_ops.ntt(ntt_ops.ntt(xb[0], cfg=cfg, spec=fr),
                                                       inverse=True, cfg=cfg, spec=fr))
         same_coset = bool(torch.equal(coset, xb[0]))
+        with stage_route():
+            back = counted(launched_stage, lambda: ntt_ops.ntt_natural(
+                ntt_ops.ntt_natural(xb, big), big, inverse=True))
+        same_trip &= bool(torch.equal(back, xb))
         del back, coset
-        pair_ms = cuda_time(lambda: (ntt_ops.ntt_dit(xb, big), ntt_ops.intt_dif(xb, big)), 3)
+        pair_ms = cuda_time(lambda: pair(xb, big), 5)
+        with stage_route():
+            stage_ms = cuda_time(lambda: pair(xb, big), 5)
+        tiles = {}
+        for t, c in NTT_N_TILES:
+            with patched((ntt_ops, "NTT_N_TILE_LOG", t), (ntt_ops, "NTT_N_TILE_MIN_COLS_LOG", c)):
+                count = len(ntt_ops.ntt_n_passes(log_n))
+                equal = same(pair(xb, big), got)
+                tiles[f"tile 2^{t}, columns >= 2^{c}"] = dict(
+                    passes=count, equal=equal, ms=cuda_time(lambda: pair(xb, big), 5))
+            same_big &= equal
+        del got
         n = 1 << log_n
         mp = muls_per_product(w)
         # per transform: n/2 log n products, n more in the scaled inverse stage;
@@ -2228,26 +2336,36 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
         del xb
         ntt_ops.release_domain(log_n, dev)
         torch.cuda.empty_cache()
-        same_plain = same_small and same_big
-        fine = same_plain and same_dft and same_trip and same_coset
+        fine = same_small and same_big and same_dft and same_trip and same_coset
         ok &= fine
-        out[fr.name] = dict(words=w, equal_to_plain=same_plain, equal_to_plain_small=same_small,
+        out[fr.name] = dict(words=w, equal_to_plain=same_small and same_big,
+                            equal_to_plain_small=same_small, equal_to_stage_route=same_stage,
                             dft=same_dft, round_trip=same_trip, coset_round_trip=same_coset,
-                            pair_ms=pair_ms, bound_ms=pair_b[0], bound_by=pair_b[1],
-                            plain_pair_ms=plain_ms, log_n=log_n, plain_log_n=plain_log)
-        log(f"  ntt_stage_n {fr.name} ({w} words): pair == plain stages word for word at "
+                            pair_ms=pair_ms, stage_pair_ms=stage_ms, bound_ms=pair_b[0],
+                            bound_by=pair_b[1], plain_pair_ms=plain_ms,
+                            pass_plain_pair_ms=pass_plain_ms, log_n=log_n, plain_log_n=plain_log,
+                            passes=passes, tile_log=tile, arithmetic=mode, tiles=tiles)
+        log(f"  ntt_block_n {fr.name} ({w} words, {mode}): passes {passes} at 2^{log_n}, tile "
+            f"2^{tile}; pair == one-stage route == plain stages == plain passes word for word at "
             f"2^{plain_log} (batch 2): {same_small}, at 2^{log_n}: {same_big}; 2^4 == host DFT: "
-            f"{same_dft}; 2^{log_n} round trip: {same_trip}, coset round trip: {same_coset}; "
-            f"pair at 2^{log_n} {pair_ms:.3f} ms (bound {pair_b[0]:.3f}, {pair_b[1]}), plain "
-            f"pair at 2^{log_n} {plain_ms:.0f} ms")
-    log("  launches of the driven NTT calls: "
-        + json.dumps({k: v for k, v in launched.items() if v}))
+            f"{same_dft}; 2^{log_n} round trip (both routes): {same_trip}, coset round trip: "
+            f"{same_coset}; pair at 2^{log_n}: passes {pair_ms:.3f} ms ({2 * len(passes)} "
+            f"launches), one-stage route {stage_ms:.3f} ms ({2 * log_n} launches), bound "
+            f"{pair_b[0]:.3f} ({pair_b[1]}); plain pair {plain_ms:.0f} ms (stages), "
+            f"{pass_plain_ms:.0f} ms (passes); tiles " + json.dumps(tiles))
+    log("  launches of the driven NTT calls: passes "
+        + json.dumps({k: v for k, v in launched.items() if v}) + "; one-stage route "
+        + json.dumps({k: v for k, v in launched_stage.items() if v}))
     last = out[cdev.curve_specs(CURVES[-1])[1].name]
-    rep.add(kernels.NTT_N.name, equal_to_plain=ok, max_abs_err=0.0 if ok else 1.0,
-            ms=last["pair_ms"], plain_ms=last["plain_pair_ms"], bound_ms=last["bound_ms"],
-            bound_by=last["bound_by"],
-            timed=f"bw6_761_fr forward + inverse over 2^{log_n} (plain pair on the card at the "
-                  f"same size); every Fr under by_field", by_field=out)
+    common = dict(equal_to_plain=ok, max_abs_err=0.0 if ok else 1.0, bound_ms=last["bound_ms"],
+                  bound_by=last["bound_by"], by_field=out)
+    rep.add(kernels.NTT_BLOCK_N.name, ms=last["pair_ms"], plain_ms=last["pass_plain_pair_ms"],
+            build=kernel_usage("ntt_block_n.cu", ""),
+            timed=f"bw6_761_fr forward + inverse over 2^{log_n} on the passes (plain passes on "
+                  f"the card at the same size); every Fr under by_field", **common)
+    rep.add(kernels.NTT_N.name, ms=last["stage_pair_ms"], plain_ms=last["plain_pair_ms"],
+            timed=f"bw6_761_fr forward + inverse over 2^{log_n} on the one-stage route (plain "
+                  f"stages on the card at the same size); every Fr under by_field", **common)
     return ok, out
 
 
@@ -2347,14 +2465,22 @@ def check_field_reduce_n(rep, gen, dev, n: int = 1 << 24) -> tuple:
                 if label == "row of n":
                     reading[f"{name}_err"] = err
                     reading[f"{name}_plain_ms"] = ms_p
+                    want_row = want
             ms = cuda_time(lambda: vo.field_reduce(op, full, spec), 10)
             b = bound(n * 4 * w + 4 * w, (n - 1) * muls_per_product(w) if op else 0)
             reading.update({f"{name}_ms": ms, f"{name}_bound_ms": b[0],
                             f"{name}_bound_by": b[1]})
+            swept = ""
+            if op:
+                equal, reading["product_sweep_ms"] = product_sweep(full, spec, want_row)
+                ok &= equal
+                reading["product_grid"] = product_grid(n, dev)
+                swept = (f"; product grid: {reading['product_grid']}; swept (each equal: "
+                         f"{equal}): " + json.dumps(reading["product_sweep_ms"]))
             log(f"  field_reduce_n {spec.name} ({w} words) {name}: max word err "
                 f"{reading[f'{name}_err']} over a row of {n} (and on the odd row, n = 1, the "
                 f"batch, p - 1 only: max {worst}); {ms:.4f} ms (bound {b[0]:.4f}, {b[1]}), "
-                f"plain {reading[f'{name}_plain_ms']:.1f} ms")
+                f"plain {reading[f'{name}_plain_ms']:.1f} ms" + swept)
         fields[spec.name] = dict(words=w, n=n, **reading)
         del full, cases
         torch.cuda.empty_cache()
@@ -2444,8 +2570,10 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
     t1 = time.perf_counter()
     ok, readings["ntt"] = check_ntt_n(rep, gen, dev, counts_log, *((10, 6) if small else ()))
     if not ok:
-        failures.append("a curve NTT differs from its plain version, the DFT or the identity")
-    log(f"[kernels] ntt_stage_n and the curve NTTs in {time.perf_counter() - t1:.1f} s")
+        failures.append("a curve NTT differs from its plain versions, the other route, the DFT "
+                        "or the identity")
+    log(f"[kernels] ntt_block_n, ntt_stage_n and the curve NTTs in "
+        f"{time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     small_lanes = {8: 1 << 12, 12: 1 << 11, 24: 1 << 10}
     ok, readings["field_pow_n"] = check_field_pow_n(
@@ -2486,7 +2614,8 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
                       f"{256 if small else 1 << 12} lanes, c 8)")
     log("[curves] K13 device ms by stage over the six MSMs: " + json.dumps(by_kernel))
     for path, names in (("curves: MSMs and msm()", ("msm_accumulate_n", "msm_reduce_n")),
-                        ("curves: NTTs", ("ntt_stage_n", "field_vec_n")),
+                        ("curves: NTTs", ("ntt_block_n", "field_vec_n")),
+                        ("curves: NTTs, one-stage route", ("ntt_stage_n",)),
                         ("curves: vec-ops", ("field_pow_n", "field_reduce_n"))):
         for k in names:
             if not counts_log.get(path, {}).get(k):
@@ -2700,7 +2829,7 @@ KERNEL_FUNCTIONS = {
     "point_dbl_k": ("point_dbl_k_kernel", "point_dbl_k_pair_kernel"),
     "point_to_affine": ("point_to_affine_kernel",),
     "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
-    "field_reduce": ("field_reduce_kernel",),
+    "field_reduce": ("field_reduce_kernel", "field_product_kernel"),
     "fixed_base_msm": ("fixed_base_kernel", "fixed_base_g1_kernel"),
     "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_stage_n_kernel",),
     # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>),
@@ -2708,7 +2837,9 @@ KERNEL_FUNCTIONS = {
     "msm_accumulate_n": ("msm_accumulate_kernel<EF",),
     "msm_reduce_n": ("msm_reduce_segments_kernel<EF", "msm_n_reduce_tree_kernel"),
     "four_step_twiddle": ("four_step_twiddle_kernel",),
-    "field_pow_n": ("field_pow_n_kernel",), "field_reduce_n": ("field_reduce_n_kernel",),
+    "field_pow_n": ("field_pow_n_kernel",),
+    "field_reduce_n": ("field_reduce_n_kernel", "field_product_n_kernel"),
+    "ntt_block_n": ("ntt_block_n_kernel",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -3025,7 +3156,7 @@ def curves_only(dev, rng, card) -> int:
     readings = curves_phase(rep, rng, dev, counts, failures)
     rows = []
     for k in (kernels.FIELD_VEC_N, kernels.MSM_ACCUMULATE_N, kernels.MSM_REDUCE_N, kernels.NTT_N,
-              kernels.FIELD_POW_N, kernels.FIELD_REDUCE_N):
+              kernels.FIELD_POW_N, kernels.FIELD_REDUCE_N, kernels.NTT_BLOCK_N):
         ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
         rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                      "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
@@ -3166,8 +3297,8 @@ def main() -> int:
                     help="build, time the device setup at complex-N and complex-M on K11 and on "
                          "the plain scan over K1 launches, and stop")
     ap.add_argument("--curves-only", action="store_true",
-                    help="build, check K12-K14 against their plain versions, drive the other "
-                         "curves' MSMs, msm() and NTTs, and stop")
+                    help="build, check K12-K14, K16 and K17 against their plain versions, "
+                         "drive the other curves' MSMs, msm(), NTTs and vec-ops, and stop")
     ap.add_argument("--multichip-only", action="store_true",
                     help="build, check K15 against its plain version, prove complex-M at D = 2, "
                          "4 and 8 and complex-N at D = 8 on meshes of this card, one process "

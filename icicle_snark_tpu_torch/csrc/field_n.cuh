@@ -14,8 +14,10 @@
 //
 // One traits struct a modulus, in field.cuh's idiom: N, N0 = -p^-1 mod 2^32,
 // p(i) and one(i) (R mod p) as switches that fold to immediates inside
-// unrolled loops. The field selector of the C entries is the struct's index
-// below (curves/device.py KERNEL_FIELDS).
+// unrolled loops, and LAZY: 4p < 2^(32 N), so values may stay in [0, 2p)
+// between operations (csrc/ntt_block_n.cuh); false only for bls12-381 Fr.
+// The field selector of the C entries is the struct's index below
+// (curves/device.py KERNEL_FIELDS).
 //
 // nmul is force-inlined: K12 and K14 call it once a thread. The point
 // formulas of K13 call it through nmul_call, __noinline__: a 12-word product
@@ -32,6 +34,7 @@ typedef uint64_t u64;
 struct Bls377Fr {
   static constexpr int N = 8;
   static constexpr u32 N0 = 0xffffffffu;  // -p^-1 mod 2^32
+  static constexpr bool LAZY = true;  // 4p < 2^256
   __device__ static __forceinline__ u32 p(int i) {
     switch (i) {
       case 0: return 0x00000001u; case 1: return 0x0a118000u; case 2: return 0xd0000001u;
@@ -53,6 +56,7 @@ struct Bls377Fr {
 struct Bls377Fq {
   static constexpr int N = 12;
   static constexpr u32 N0 = 0xffffffffu;  // -p^-1 mod 2^32
+  static constexpr bool LAZY = true;  // 4p < 2^384
   __device__ static __forceinline__ u32 p(int i) {
     switch (i) {
       case 0: return 0x00000001u; case 1: return 0x8508c000u; case 2: return 0x30000000u;
@@ -76,6 +80,7 @@ struct Bls377Fq {
 struct Bls381Fr {
   static constexpr int N = 8;
   static constexpr u32 N0 = 0xffffffffu;  // -p^-1 mod 2^32
+  static constexpr bool LAZY = false;  // 4p > 2^256: r is 2^254.86
   __device__ static __forceinline__ u32 p(int i) {
     switch (i) {
       case 0: return 0x00000001u; case 1: return 0xffffffffu; case 2: return 0xfffe5bfeu;
@@ -97,6 +102,7 @@ struct Bls381Fr {
 struct Bls381Fq {
   static constexpr int N = 12;
   static constexpr u32 N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
+  static constexpr bool LAZY = true;  // 4p < 2^384
   __device__ static __forceinline__ u32 p(int i) {
     switch (i) {
       case 0: return 0xffffaaabu; case 1: return 0xb9feffffu; case 2: return 0xb153ffffu;
@@ -120,6 +126,7 @@ struct Bls381Fq {
 struct Bw6Fq {
   static constexpr int N = 24;
   static constexpr u32 N0 = 0x8fa798ddu;  // -p^-1 mod 2^32
+  static constexpr bool LAZY = true;  // 4p < 2^768
   __device__ static __forceinline__ u32 p(int i) {
     switch (i) {
       case 0: return 0x0000008bu; case 1: return 0xf49d0000u; case 2: return 0x70000082u;
@@ -163,12 +170,12 @@ __device__ __forceinline__ void ncond_sub_p(u32* r, const u32* t, u32 top) {
   for (int j = 0; j < F::N; j++) r[j] = ge ? d[j] : t[j];
 }
 
-// CIOS Montgomery product: r = a * b * 2^-(32 N) mod p (field.cuh's fmul at
-// N words).
+// The CIOS rounds of a Montgomery product (field.cuh's fmul at N words), t of
+// N + 2 words: t[0..N-1] with the carry word t[N] is (a b + M p) / 2^(32 N),
+// below a b / 2^(32 N) + p.
 template <class F>
-__device__ __forceinline__ void nmul(u32* r, const u32* a, const u32* b) {
+__device__ __forceinline__ void nmont_rounds(u32* t, const u32* a, const u32* b) {
   constexpr int N = F::N;
-  u32 t[N + 2];
 #pragma unroll
   for (int j = 0; j < N + 2; j++) t[j] = 0;
 #pragma unroll
@@ -196,7 +203,14 @@ __device__ __forceinline__ void nmul(u32* r, const u32* a, const u32* b) {
     t[N - 1] = (u32)s;
     t[N] = t[N + 1] + (u32)(s >> 32);
   }
-  ncond_sub_p<F>(r, t, t[N]);
+}
+
+// r = a * b * 2^-(32 N) mod p, canonical (a, b < p)
+template <class F>
+__device__ __forceinline__ void nmul(u32* r, const u32* a, const u32* b) {
+  u32 t[F::N + 2];
+  nmont_rounds<F>(t, a, b);
+  ncond_sub_p<F>(r, t, t[F::N]);
 }
 
 template <class F>

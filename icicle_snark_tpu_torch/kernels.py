@@ -179,6 +179,9 @@ _SIGNATURES = {
     "snark_field_pow_n": [_I, _VP, _VP, _VP, _I, _LL, _LL, _VP],
     # op, field (KERNEL_FIELDS), out, in, rows, n, blocks, stream
     "snark_field_reduce_n": [_I, _I, _VP, _VP, _LL, _LL, _LL, _VP],
+    # field (KERNEL_FIELDS), x, tw (stage-major), mul, mul_lanes, batch, n, log_n, low, k,
+    # tcols_log, inverse, stream
+    "snark_ntt_block_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -248,8 +251,9 @@ FIELD_POW = Kernel(
     "icicle_snark_tpu/fields/limbs.py:516",
 )
 FIELD_REDUCE = Kernel(
-    "field_reduce", "snark_field_reduce", "icicle_snark_tpu_torch/csrc/field_reduce.cu",
-    "icicle_snark_tpu/ops/vec_ops.py:68",
+    "field_reduce", "snark_field_reduce",
+    "icicle_snark_tpu_torch/csrc/field_reduce.cu; icicle_snark_tpu_torch/csrc/field_product.cuh",
+    "icicle_snark_tpu/ops/vec_ops.py:68; icicle_snark_tpu/ops/vec_ops.py:80",
 )
 FIXED_BASE = Kernel(
     "fixed_base_msm", "snark_fixed_base_msm",
@@ -281,8 +285,14 @@ FIELD_POW_N = Kernel(
     "icicle_snark_tpu/fields/limbs.py:516",
 )
 FIELD_REDUCE_N = Kernel(
-    "field_reduce_n", "snark_field_reduce_n", "icicle_snark_tpu_torch/csrc/field_reduce_n.cu",
-    "icicle_snark_tpu/ops/vec_ops.py:68",
+    "field_reduce_n", "snark_field_reduce_n",
+    "icicle_snark_tpu_torch/csrc/field_reduce_n.cu; icicle_snark_tpu_torch/csrc/field_product.cuh",
+    "icicle_snark_tpu/ops/vec_ops.py:68; icicle_snark_tpu/ops/vec_ops.py:80",
+)
+NTT_BLOCK_N = Kernel(
+    "ntt_block_n", "snark_ntt_block_n",
+    "icicle_snark_tpu_torch/csrc/ntt_block_n.cu; icicle_snark_tpu_torch/csrc/ntt_block_n.cuh",
+    "icicle_snark_tpu/ops/ntt.py:158; icicle_snark_tpu/ops/ntt.py:180",
 )
 # The sharded prove (parallel/)
 FOUR_STEP = Kernel(
@@ -293,7 +303,7 @@ ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
        FIELD_POW, FIELD_REDUCE, FIXED_BASE,
        FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP,
-       FIELD_POW_N, FIELD_REDUCE_N)
+       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N)
 
 
 def reset_counts():

@@ -1,5 +1,6 @@
 """Batched radix-2 NTT over BN254 Fr (kernels K3 and K5) and over the scalar
-fields of bls12-377, bls12-381 and bw6-761 (kernel K14).
+fields of bls12-377, bls12-381 and bw6-761 (kernel K14: its one-stage
+kernel and its passes).
 
 The prove pipeline never needs natural->natural transforms: `intt_dif`
 takes natural-order values to BIT-REVERSED coefficients (Gentleman-Sande,
@@ -28,9 +29,13 @@ ordering and an arbitrary coset on `ntt_natural`, K1 products against
 
 The other curves' Fr (`NTTDomain(log_n, device, spec, root_tower)`, as
 the JAX NTTDomain(log_n, spec, root_tower)) run the same pair of networks
-stage by stage on K14 (`csrc/ntt_n.cu`, K3's design over a stage-major
-twiddle table), with K12 for their products and power tables; K5 and K3
-stay BN254's. The plain version of a K14 stage is `ntt_stage_n_plain`.
+on K14, with K12 for their products and power tables; K5 and K3 stay
+BN254's. From NTT_BLOCK_MIN_LOG up a transform is K14's passes
+(`csrc/ntt_block_n.cu`, K5's passes at N words, the 1/n or the (words, n)
+scale fused into the low = 0 inverse pass, tiles of NTT_N_TILE_LOG);
+below it, one K14 stage a launch (`csrc/ntt_n.cu`, K3's design over the
+stage-major table), which also stays as the passes' stage-by-stage check.
+The plain versions are `ntt_block_n_plain` and `ntt_stage_n_plain`.
 
 Data layout: (B, words, n) int32, Montgomery form (fields/limbs.py): 8
 words for BN254 Fr and the bls12 Fr, 12 for the bw6-761 Fr.
@@ -189,6 +194,11 @@ def ntt_stage_n_plain(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool,
     return _butterflies_plain(x, stw[:, h - 1: 2 * h - 1], m, inverse, scale, spec)
 
 
+def _k14_field(spec, who: str):
+    if spec.bn254 or spec.field_id < 0:
+        raise InvalidArgument(f"{who}: K14 covers the bls12 and bw6-761 Fr, not {spec.name}")
+
+
 def ntt_stage_n(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
                 scale: torch.Tensor | None = None) -> None:
     """One butterfly stage of span m over a non-BN254 Fr, IN PLACE on x
@@ -207,8 +217,7 @@ def ntt_stage_n(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
         return
     if x.device.type != "cuda":
         raise RuntimeError(f"ntt_stage_n: unsupported device {x.device}")
-    if spec.bn254 or spec.field_id < 0:
-        raise InvalidArgument(f"ntt_stage_n: K14 covers the bls12 and bw6-761 Fr, not {spec.name}")
+    _k14_field(spec, "ntt_stage_n")
     stw = stw.contiguous()
     scale = None if scale is None else scale.contiguous()
     kernels.NTT_N.launch(
@@ -234,17 +243,19 @@ NTT_TILE_MIN_COLS_LOG = 5
 NTT_BLOCK_MIN_LOG = 3
 
 
-def block_passes(log_n: int, tile_log: int | None = None):
+def block_passes(log_n: int, tile_log: int | None = None, min_cols_log: int | None = None):
     """The passes of one transform as (low, k, tcols_log), in ascending
     order of stages: pass (low, k, t) covers the spans 2^(low+1) ..
     2^(low+k) on tiles of 2^k rows by 2^t columns. The first pass takes
     the lowest min(tile_log, log_n) stages on contiguous tiles; the others
-    keep at least 2^NTT_TILE_MIN_COLS_LOG columns (half the tile's bits for
-    a small forced tile) and split the remaining stages evenly."""
+    keep at least 2^min_cols_log columns (NTT_TILE_MIN_COLS_LOG by default;
+    half the tile's bits for a small forced tile) and split the remaining
+    stages evenly."""
     tile_log = NTT_TILE_LOG if tile_log is None else tile_log
     if tile_log < 1:
         raise ValueError(f"block_passes: bad tile size 2^{tile_log}")
-    min_cols_log = min(NTT_TILE_MIN_COLS_LOG, tile_log // 2)
+    min_cols_log = min(NTT_TILE_MIN_COLS_LOG if min_cols_log is None else min_cols_log,
+                       tile_log // 2)
     first = min(tile_log, log_n)
     passes = [(0, first, 0)]
     rest = log_n - first
@@ -264,11 +275,7 @@ def ntt_block_plain(x: torch.Tensor, stw: torch.Tensor, low: int, k: int,
     """The plain PyTorch version of a bare K5 pass: the stages of spans
     2^(low+1) .. 2^(low+k), one plain stage each, in the kernel's order,
     with the kernel's stage-major twiddle table `stw`."""
-    stages = range(low + k, low, -1) if inverse else range(low + 1, low + k + 1)
-    for s in stages:
-        h = 1 << (s - 1)
-        x = _butterflies_plain(x, stw[:, h - 1: 2 * h - 1], 2 * h, inverse, None)
-    return x
+    return ntt_block_n_plain(x, stw, low, k, inverse, FR_SPEC)
 
 
 def ntt_block_scale_plain(x: torch.Tensor, stw: torch.Tensor, k: int,
@@ -341,18 +348,97 @@ def ntt_block(x: torch.Tensor, tw: torch.Tensor, low: int, k: int, tcols_log: in
     )
 
 
+# ---------------------------------------------------------------- K14's passes
+
+# The tile of K14's passes: 2^NTT_N_TILE_LOG elements, 8 * words bytes each
+# with its twiddles (64 KB at 8 words, 96 KB at 12: two blocks an SM at
+# both), and the fewest columns of a strided pass (2^4: 16 neighbouring
+# words of each word row, two full 32-byte sectors), so that a transform at
+# 2^22 is three passes. On an H100 the pair at 2^22 took 3.74 / 3.86 / 7.63
+# ms (bls12-377 / bls12-381 / bw6-761 Fr) so; 3.83 / 3.95 / 7.84 with 2^5
+# columns (four passes); 4.49 / 4.64 / 9.55 at tiles of 2^11, one block an
+# SM at both widths (chip_smoke.py check_ntt_n, PERF.md PR 11 run D).
+NTT_N_TILE_LOG = 10
+NTT_N_TILE_MIN_COLS_LOG = 4
+
+
+def ntt_n_passes(log_n: int):
+    """The passes of one K14 transform of 2^log_n over `spec` (8 or 12
+    words: the same tile), as `block_passes` gives them."""
+    return block_passes(log_n, NTT_N_TILE_LOG, NTT_N_TILE_MIN_COLS_LOG)
+
+
+def block_n_lazy(spec) -> bool:
+    """Whether K14's passes keep values in [0, 2p) between operations
+    (csrc/field_n.cuh LAZY): 4p < 2^(32 words), so that a lazy sum of two
+    such values stays in the field's words. False for bls12-381 Fr (r
+    2^254.86 in 256 bits), which stays canonical after every operation."""
+    return 4 * spec.modulus < 1 << (32 * spec.words)
+
+
+def ntt_block_n_plain(x: torch.Tensor, stw: torch.Tensor, low: int, k: int, inverse: bool,
+                      spec, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of a K14 pass (and of a bare K5 pass at
+    BN254 Fr): the stages of spans 2^(low+1) .. 2^(low+k) over (B, words,
+    n), one `ntt_stage_n_plain` each, in the kernel's order, with the
+    stage-major table `stw`; then each output times `scale` ((words, 1) or
+    (words, n)) when one is given."""
+    stages = range(low + k, low, -1) if inverse else range(low + 1, low + k + 1)
+    for s in stages:
+        x = ntt_stage_n_plain(x, stw, 1 << s, inverse, spec)
+    return x if scale is None else lb.field_op_plain(OP_MUL, x, scale, spec)
+
+
+def ntt_block_n(x: torch.Tensor, stw: torch.Tensor, low: int, k: int, tcols_log: int,
+                inverse: bool, spec, scale: torch.Tensor | None = None) -> None:
+    """k butterfly stages (spans 2^(low+1) .. 2^(low+k)) over a non-BN254 Fr
+    IN PLACE on x (B, words, n) int32, tiles of 2^k rows by 2^tcols_log
+    columns, with the stage-major table of `NTTDomain.stw_*`; descending
+    DIF stages when inverse, else ascending DIT stages. `scale`, for the
+    low = 0 inverse pass: (words, 1) or (words, n), each output times it.
+    One K14 pass launch for CUDA tensors."""
+    w = spec.words
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != w or not x.is_contiguous():
+        raise ValueError(f"ntt_block_n: want contiguous int32 (B, {w}, n), got {tuple(x.shape)}")
+    b, _, n = x.shape
+    log_n = n.bit_length() - 1
+    if (stw.shape != (w, n) or n != 1 << log_n or k < 1 or low < 0 or low + k > log_n
+            or not 0 <= tcols_log <= low):
+        raise ValueError(f"ntt_block_n: bad twiddles {tuple(stw.shape)} or pass ({low}, {k}, "
+                         f"{tcols_log}) for n={n}")
+    if scale is not None and (not inverse or low != 0 or scale.shape not in ((w, 1), (w, n))):
+        raise ValueError(f"ntt_block_n: scale is for the low = 0 inverse pass, ({w}, 1) or "
+                         f"({w}, n)")
+    if x.device.type == "cpu":
+        x.copy_(ntt_block_n_plain(x, stw, low, k, inverse, spec, scale))
+        return
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ntt_block_n: unsupported device {x.device}")
+    _k14_field(spec, "ntt_block_n")
+    stw = stw.contiguous()
+    scale = None if scale is None else scale.contiguous()
+    kernels.NTT_BLOCK_N.launch(
+        spec.field_id, x.data_ptr(), stw.data_ptr(), None if scale is None else scale.data_ptr(),
+        0 if scale is None else scale.shape[-1], b, n, log_n, low, k, tcols_log, int(inverse),
+    )
+
+
 # ---------------------------------------------------------------- transforms
 
 def _inverse_(y: torch.Tensor, dom: NTTDomain, scale: torch.Tensor) -> None:
     """The inverse network IN PLACE on y (B, words, n), natural in,
     bit-reversed out, each output times `scale`, (words, 1) or (words, n).
-    BN254: K5 from NTT_BLOCK_MIN_LOG up (the scale fused into the low = 0
-    pass), else K3 stage by stage (a (8, 1) scale fused into the last stage,
-    an (8, n) one a K1 product after it). The other Fr: K14 stage by stage,
-    a K12 product for an (words, n) scale."""
+    From NTT_BLOCK_MIN_LOG up: K5's passes (BN254) or K14's (the other Fr),
+    the scale fused into the low = 0 pass. Below it, stage by stage on K3
+    or K14's one-stage kernel: a (words, 1) scale fused into the last stage,
+    a (words, n) one a K1 (K12) product after it."""
     spec = dom.spec
     lanes = scale.shape[-1] == 1
     if not spec.bn254:
+        if dom.log_n >= NTT_BLOCK_MIN_LOG:
+            for low, k, tcols in reversed(ntt_n_passes(dom.log_n)):
+                ntt_block_n(y, dom.stw_inv, low, k, tcols, True, spec, scale if low == 0 else None)
+            return
         for s in range(dom.log_n, 0, -1):
             ntt_stage_n(y, dom.stw_inv, 1 << s, True, spec, scale if lanes and s == 1 else None)
         if not lanes:
@@ -372,11 +458,15 @@ def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None
     """The forward network IN PLACE on y (B, 8, n), bit-reversed in,
     natural out. With `h_out` (B = 3: A, B, C) it writes
     h = (A B - C) R^2 there instead, fused into K5's last pass (K3: three
-    K1 launches after the stages), and y is scratch. The other Fr: K14
-    stage by stage, without h."""
+    K1 launches after the stages), and y is scratch. The other Fr: K14's
+    passes from NTT_BLOCK_MIN_LOG up, else its one-stage kernel; no h."""
     if not dom.spec.bn254:
         if h_out is not None:
             raise ValueError("_forward_: h is the BN254 prove's")
+        if dom.log_n >= NTT_BLOCK_MIN_LOG:
+            for low, k, tcols in ntt_n_passes(dom.log_n):
+                ntt_block_n(y, dom.stw_fwd, low, k, tcols, False, dom.spec)
+            return
         for s in range(1, dom.log_n + 1):
             ntt_stage_n(y, dom.stw_fwd, 1 << s, False, dom.spec)
         return
@@ -396,8 +486,8 @@ def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None
 
 def intt_dif(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
     """Inverse NTT of (B, words, n), natural input -> BIT-REVERSED output,
-    times 1/n. BN254: K5 from NTT_BLOCK_MIN_LOG up, else K3; the other Fr:
-    K14."""
+    times 1/n. From NTT_BLOCK_MIN_LOG up K5 (BN254) or K14's passes, else K3
+    or K14's one-stage kernel."""
     y = x.clone().contiguous()
     _inverse_(y, dom, dom.n_inv_mont)
     return y

@@ -18,9 +18,12 @@ on the input's own device:
     div one K9 and one K1; over the other fields K16
     (csrc/field_pow_n.cu) and K12;
   * sum_reduce and product_reduce are K10 (csrc/field_reduce.cu), K17
-    (csrc/field_reduce_n.cu) over the other fields: one launch over blocks
-    of REDUCE_BLOCK_ELEMS elements of each row, and one more, a block a
-    row, over the blocks' partials when a row has several;
+    (csrc/field_reduce_n.cu) over the other fields: one launch over spans
+    of each row, and one more, a block a row, over the spans' partials when
+    a row has several. The sum takes spans of REDUCE_BLOCK_ELEMS elements;
+    the product (csrc/field_product.cuh) a few blocks an SM
+    (`product_blocks`), each thread folding a long run into two
+    accumulators;
   * product_reduce over a field of more than 8 words raises
     InvalidArgument, on every device, as the JAX package's does (its
     product_reduce, icicle_snark_tpu/ops/vec_ops.py:84, reshapes the
@@ -39,8 +42,30 @@ from ..fields import limbs as lb
 from ..fields.limbs import FR_SPEC, NLIMB
 
 REDUCE_OPS = {"sum": 0, "product": 1}
-# K10: elements one block of 256 threads folds in its first launch (8 a thread)
+# The sum: elements one block of 256 threads folds in its first launch (8 a thread)
 REDUCE_BLOCK_ELEMS = 2048
+# The product (csrc/field_product.cuh): blocks of PRODUCT_THREADS threads an
+# SM in its first launch, split over the rows (about 124 elements a thread
+# over a row of 2^24 on 132 SMs), and the fewest elements a thread folds, so
+# that a short row takes fewer blocks. On an H100 a row of 2^24 took
+# 0.52-0.54 ms at 2-4 blocks an SM and 0.55-0.57 at 1 (chip_smoke.py
+# `product_sweep`, PERF.md PR 11).
+PRODUCT_THREADS = 256
+PRODUCT_BLOCKS_PER_SM = 4
+PRODUCT_MIN_RUN = 16
+
+
+def sm_count(device) -> int:
+    """The SM count of the card `device` names."""
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
+
+
+def product_blocks(rows: int, n: int, sms: int) -> int:
+    """Blocks a row of the product's first launch: PRODUCT_BLOCKS_PER_SM
+    blocks an SM over all rows, at most one for every PRODUCT_THREADS *
+    PRODUCT_MIN_RUN elements of a row, at least one."""
+    per_row = -(-sms * PRODUCT_BLOCKS_PER_SM // rows)
+    return max(1, min(per_row, n // (PRODUCT_THREADS * PRODUCT_MIN_RUN)))
 
 
 def add(a, b, spec=FR_SPEC):
@@ -124,7 +149,7 @@ def field_reduce_plain(op: int, v: torch.Tensor, spec) -> torch.Tensor:
 def field_reduce(op: int, v: torch.Tensor, spec) -> torch.Tensor:
     """Modular sum (op 0) or Montgomery product (op 1) over the last axis of
     (..., words, n), n >= 1; returns (..., words, 1), canonical. Two K10
-    (BN254) or K17 launches, one when a row fits one block. The product
+    (BN254) or K17 launches, one when a row takes one block. The product
     takes fields of 8 words only (InvalidArgument otherwise), as the JAX
     package's product_reduce does."""
     w = spec.words
@@ -151,7 +176,8 @@ def field_reduce(op: int, v: torch.Tensor, spec) -> torch.Tensor:
         kernel.launch(op, spec.field_id, out.data_ptr(), src.data_ptr(), rows, n, blocks)
         return out
 
-    blocks = -(-n // REDUCE_BLOCK_ELEMS)
+    blocks = (product_blocks(rows, n, sm_count(v.device)) if op
+              else -(-n // REDUCE_BLOCK_ELEMS))
     part = launch(v, n, blocks)
     return part if blocks == 1 else launch(part, blocks, 1)
 
