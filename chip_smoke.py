@@ -7,7 +7,7 @@
     python3 chip_smoke.py --ops-only    # K9-K11, K4 at small windows, the op surface
     python3 chip_smoke.py --setup-only  # the device setup on K11 and on K1 launches, timed
     python3 chip_smoke.py --curves-only # K12-K14, K16, K17: the other curves' MSMs, NTTs, vec-ops
-    python3 chip_smoke.py --multichip-only  # K15 and the sharded prove on meshes of this card
+    python3 chip_smoke.py --multichip-only  # K6, K15 and the sharded prove on meshes of this card
     python3 chip_smoke.py --precompute-only # K7 and K11 against plain, timed, with registers
     python3 chip_smoke.py --curves-msm-only # K13 alone at the six full-width MSMs, by stage
 
@@ -53,11 +53,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
      the bare passes and K1 launches they replace; K4 against its plain
      versions on a bit-valued witness (A, B1, C, B2 scalars in {0, 1},
      uniform h) and timed beside uniform scalars; K4's constants swept;
+     K6 word for word against its plain version over S = 2, 3, 4 and 8
+     stacks of window sums, G1 and G2, timed beside the parent's pairwise
+     route and the launch floor (`check_acc_windows`);
      first prove, three warm proves, a profiled prove (profiled again if a
      kernel the port launched left no device record), proves with the
      bit-valued witness; four deterministic proofs (default in-core route
      with K5, NTT forced to K3, MSM forced into slices of 2^21 lanes with
-     K6, G2 bases precomputed with factor 2) that must be byte-identical; a
+     K6 once for each group that slices, G2 bases precomputed with factor
+     2) that must be byte-identical; a
      deterministic and a randomized proof verify; the MSMs at c = 12..16;
   8. the probe entry point (K8), every (op, W);
   9. complex(40, 50): the port's device setup gives the host oracle's zkey
@@ -93,12 +97,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      NTT's twiddle pass) against its plain version word for word at every
      shard shape the proves below give it (2^M over 2, 4 and 8 shards and
      2^N over 8, the factors in both orders, forward and inverse, 0, 1 and
-     r - 1 among the inputs), timed at each; complex-M proved
+     r - 1 among the inputs), timed at each and swept over its tiles;
+     complex-M proved
      through `prove_multichip` on meshes of this card repeated D = 2, 4 and
      8 times and complex-N at D = 8: each deterministic proof equal to the
      single-device proof byte for byte, each randomized one verified, the
      launches of each deterministic sharded prove counted alone (K15 among
-     them), its phases (A: R1CS and coset, B: the G1 MSMs, C: G2, host)
+     them, K6 twice: phase C's combine, once for G1 and once for G2), its phases (A: R1CS and coset, B: the G1 MSMs, C: G2, host)
      timed with the peak device memory; then one process joins a
      torch.distributed group over NCCL at world size 1 with two shards on
      the card and proves complex-M D = 2 the same way. The shards of one
@@ -1067,10 +1072,33 @@ def _stack_with_edges(ops, acc, new):
     return a.reshape(shape), b.reshape(shape)
 
 
+K6_STACKS = (2, 3, 4, 8)  # the sliced route's 2 and 4, the mesh's 2, 4 and 8; 3 pads
+
+
+def _pairwise(stacks, add):
+    """The parent's route for S stacks: `add` (two stacks -> their sum) on
+    neighbours, round by round, the odd one carried (combine_windows before
+    the one-launch sum)."""
+    pts = list(stacks.unbind(0))
+    while len(pts) > 1:
+        nxt = [add(pts[i], pts[i + 1]) for i in range(0, len(pts) - 1, 2)]
+        pts = nxt + pts[len(pts) - len(pts) % 2:]
+    return pts[0]
+
+
 def check_acc_windows(rep, rng, cache, dev):
     """K6 at the (G, W) of the cache's MSM plan, G1 and G2 (the large
-    circuit's: only its sliced route launches K6), on window sums of two
-    random MSMs over the key's first lanes, with the edge lanes put in."""
+    circuit's, which its sliced route and phase C of every sharded prove
+    give K6), over S = 2, 3, 4 and 8 stacks of window sums of random MSMs
+    over the key's first lanes, the edge lanes put into the first two: word
+    for word against its plain version at every S; timed (CUDA events, 20
+    calls) beside the parent's pairwise route (S - 1 launches of S = 2,
+    round by round, as combine_windows ran) and the launch floor (K6 itself
+    at one G1 lane, S = 2: the same wrapper and ctypes path, one addition).
+    The row's ms, plain ms and bound are the sliced route's shapes at
+    complex-1600k, G1 S = 4 plus G2 S = 2. In a tree whose ops/msm.py has no
+    `sum_windows` (an earlier one) only the pairwise route runs, against
+    its plain version."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -1078,35 +1106,68 @@ def check_acc_windows(rep, rng, cache, dev):
     from icicle_snark_tpu_torch.fields import limbs as lb
     from icicle_snark_tpu_torch.ops import msm
 
-    ok, ms, plain_ms, bms, shapes, worst = True, 0.0, 0.0, 0.0, [], 0.0
+    one_launch = hasattr(msm, "sum_windows")
+    ok, worst, by_stacks, shapes = True, 0.0, {}, []
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for g2 in (False, True):
+        grp = "g2" if g2 else "g1"
         ops = jc.G2_PLAIN if g2 else jc.G1_PLAIN
         sizes, rec, c = _msm_shape(cache, g2)
         groups = len(sizes)
         lanes = min(4096, rec.shape[0] // groups)
         cut = rec[:lanes * groups]
         stacks = [msm.msm_window_sums(random_field(rng, lb.FR_SPEC.modulus, (lanes * groups,), dev),
-                                      [lanes] * groups, cut, c) for _ in range(2)]
-        acc, new = _stack_with_edges(ops, *stacks)
-        got = msm.acc_windows(acc, new)
-        want, t_plain = timed_once(lambda: msm.acc_windows_plain(acc, new))
-        err = max_word_err(got, want)
-        affine = _points_err(ops, got, want)
-        gw = acc.shape[-2] * acc.shape[-1]
-        log(f"  point_add {'g2' if g2 else 'g1'} (G, W) = {tuple(acc.shape[-2:])}: max word err "
-            f"{err}, as affine points {affine}")
-        ok &= err == 0 and affine == 0
-        worst = max(worst, err, affine)
-        ms += cuda_time(lambda: msm.acc_windows(acc, new), 20)
-        plain_ms += t_plain
+                                      [lanes] * groups, cut, c) for _ in range(max(K6_STACKS))]
+        stacks[0], stacks[1] = _stack_with_edges(ops, stacks[0], stacks[1])
+        every = torch.stack(stacks)
+        if not g2:
+            one = every[:2, ..., :1, :1].contiguous()  # one G1 lane, two stacks
+        gw = stacks[0].shape[-1] * stacks[0].shape[-2]
         words = 16 if g2 else 8
-        b, _ = bound(3 * gw * 3 * words * 4, gw * FQ_MULS["g2" if g2 else "g1"]["add"] * MULS_PER_MONT)
-        bms += b
-        shapes.append(f"{'g2' if g2 else 'g1'} {tuple(acc.shape[-2:])}")
-    rep.add(kernels.POINT_ADD.name, equal_to_plain=ok, max_abs_err=worst, ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by="operations",
-            timed="one accumulation each of (G, W) = " + " + ".join(shapes)
-                  + ", the sliced route's shapes")
+        for s in K6_STACKS:
+            st = every[:s].contiguous()
+            if one_launch:
+                routes = {"tree": msm.sum_windows,
+                          "pairwise": lambda x: _pairwise(x, msm.acc_windows)}
+                plain = msm.sum_windows_plain
+            else:
+                routes = {"pairwise": lambda x: _pairwise(x, msm.acc_windows)}
+                plain = lambda x: _pairwise(x, msm.acc_windows_plain)  # noqa: E731
+            want, t_plain = timed_once(lambda: plain(st))
+            errs = {}
+            for name, fn in routes.items():
+                got = fn(st)
+                torch.cuda.synchronize()
+                # the words are the plain version's where the order is (the
+                # tree's, or the pairwise route's in an earlier tree)
+                exact = name == "tree" or not one_launch
+                err = max_word_err(got, want) if exact else 0.0
+                affine = _points_err(ops, got, want)
+                errs[name] = (err, affine)
+                ok &= err == 0 and affine == 0
+                worst = max(worst, err, affine)
+            times = {name: cuda_time(lambda: fn(st), 20) for name, fn in routes.items()}
+            bnd, by = bound((s + 1) * 3 * words * 4 * gw,
+                            (s - 1) * gw * FQ_MULS[grp]["add"] * MULS_PER_MONT)
+            key = f"{grp} S={s}"
+            by_stacks[key] = {"ms": times, "plain_ms": t_plain, "bound_ms": bnd, "bound_by": by,
+                              "errors": errs, "shape": list(st.shape)}
+            log(f"  point_add {key} (G, W) = {tuple(st.shape[-2:])}: errors (words, affine) "
+                f"{errs}; ms " + json.dumps({k: round(v, 5) for k, v in times.items()})
+                + f"; plain {t_plain:.2f} ms; bound {bnd:.6f} ms ({by})")
+            if (s, g2) in ((4, False), (2, True)):
+                shapes.append(f"{grp} S = {s} at (G, W) = {tuple(st.shape[-2:])}")
+                row["ms"] += times["tree" if one_launch else "pairwise"]
+                row["plain_ms"] += t_plain
+                row["bound_ms"] += bnd
+    floor_ms = cuda_time(lambda: (msm.sum_windows(one) if one_launch
+                                  else msm.acc_windows(one[0], one[1])), 20)
+    usage = kernel_usage("point_vec.cu", "")
+    log(f"[kernels] point_add: launch floor (one G1 lane, S = 2) {floor_ms:.5f} ms; {usage}")
+    rep.add(kernels.POINT_ADD.name, equal_to_plain=ok, max_abs_err=worst, bound_by="operations",
+            launch_floor_ms=floor_ms, by_stacks=by_stacks, build=usage,
+            timed="one sum each of " + " and ".join(shapes) + ", the sliced route's shapes at "
+                  "complex-1600k", **row)
     return ok
 
 
@@ -2639,12 +2700,16 @@ def check_four_step(rep, rng, dev, cases) -> bool:
     inverse pass's orientation) and swapped (the forward pass's), each
     forward and inverse, on the first and the last shard; inputs hold 0, 1
     and r - 1. Timed (CUDA events) at each case's inverse pass, beside its
-    bound; the row's ms and plain ms are those of the first case."""
+    bound, and there swept over the tiles (ntt_dist.FOUR_STEP_TILES), each
+    held against the plain words too; the row's ms and plain ms are those of
+    the first case. A tree without the tiles (an earlier one) runs its one
+    kernel."""
     import torch
 
     from icicle_snark_tpu_torch.fields import limbs as lb
     from icicle_snark_tpu_torch.parallel import ntt_dist
 
+    tiles = getattr(ntt_dist, "FOUR_STEP_TILES", None)
     ok, err, timed = True, 0.0, []
     for log_n, d in cases:
         log_n1, log_n2 = ntt_dist.split_logs(log_n, d)
@@ -2667,10 +2732,22 @@ def check_four_step(rep, rng, dev, cases) -> bool:
         # one product an element, one a twiddle (shared by the 3 rows); the
         # element read and written once, the two power tables read once
         lanes = x.numel() // 8
-        bnd, by = bound(2 * 32 * lanes + 32 * (tables[0].shape[1] + tables[1].shape[1]),
+        bnd, by = bound(2 * 32 * lanes + 32 * (tables[0].numel() + tables[1].numel()) // 8,
                         MULS_PER_MONT * (lanes + lanes // 3))
+        sweep = {}
+        if tiles:
+            want = ntt_dist.four_step_twiddle_plain(x, tables, d - 1, d)
+            for tile in tiles:
+                with patched((ntt_dist, "FOUR_STEP_TILE", tile)):
+                    same = torch.equal(ntt_dist.four_step_twiddle(x, tables, d - 1, d), want)
+                    ok &= same
+                    sweep[f"{tile[0]}x{tile[1]}"] = (
+                        cuda_time(lambda: ntt_dist.four_step_twiddle(x, tables, d - 1, d), 20)
+                        if same else None)
+            log(f"  four_step_twiddle tile sweep (k1 x i2), ms: "
+                + json.dumps({k: None if v is None else round(v, 5) for k, v in sweep.items()}))
         timed.append({"log_n": log_n, "d": d, "shape": list(x.shape), "ms": ms,
-                      "bound_ms": bnd, "bound_by": by})
+                      "bound_ms": bnd, "bound_by": by, "sweep_ms": sweep})
         if len(timed) == 1:
             plain_ms = cuda_time(lambda: ntt_dist.four_step_twiddle_plain(x, tables, d - 1, d), 2)
             main = {"ms": ms, "bound_ms": bnd, "bound_by": by, "plain_ms": plain_ms,
@@ -2678,9 +2755,11 @@ def check_four_step(rep, rng, dev, cases) -> bool:
                              f" over {d} shards"}
         log(f"[kernels] four_step_twiddle 2^{log_n} over {d}, {tuple(x.shape)}: {ms:.4f} ms "
             f"(bound {bnd:.4f} ms, {by}, {ms / bnd:.2f}x)")
-    rep.add("four_step_twiddle", equal_to_plain=ok, max_abs_err=err, shapes=timed, **main)
+    usage = kernel_usage("four_step.cu", "")
+    rep.add("four_step_twiddle", equal_to_plain=ok, max_abs_err=err, shapes=timed, build=usage,
+            **main)
     log(f"[kernels] four_step_twiddle: equal to plain {ok} at {len(cases)} x 2 orientations x 2 "
-        f"directions x 2 shards; plain {main['plain_ms']:.2f} ms at the first")
+        f"directions x 2 shards; plain {main['plain_ms']:.2f} ms at the first; {usage}")
     return ok
 
 
@@ -2691,6 +2770,7 @@ def _sharded_prove(tag, mesh, cache, wtns, single, counts_log, failures) -> dict
     the caller to verify."""
     import torch
 
+    from icicle_snark_tpu_torch.ops import msm as msm_ops
     from icicle_snark_tpu_torch.parallel import prove_step
     from icicle_snark_tpu_torch.prover import pipeline
 
@@ -2708,6 +2788,10 @@ def _sharded_prove(tag, mesh, cache, wtns, single, counts_log, failures) -> dict
     for k in SHARDED_KERNELS:
         if not counts_log[tag].get(k):
             failures.append(f"{tag} did not launch {k}")
+    # phase C's combine: one K6 launch for G1 and one for G2 at every D (a
+    # tree with the one-launch sum)
+    if hasattr(msm_ops, "sum_windows") and counts_log[tag].get("point_add") != 2:
+        failures.append(f"{tag} launched K6 {counts_log[tag].get('point_add')} times, not 2")
     timer = pipeline.PhaseTimer(mesh.local_devices[0])
     t0 = time.perf_counter()
     proof, public = prove_step.prove_multichip(mesh, wtns, cache, timer=timer)
@@ -2825,7 +2909,8 @@ KERNEL_FUNCTIONS = {
     "field_vec": ("field_vec_kernel",), "r1cs_rows": ("r1cs_rows_kernel", "r1cs_fold_kernel"),
     "ntt_stage": ("ntt_stage_kernel",), "msm_accumulate": ("msm_accumulate_kernel",),
     "msm_reduce": ("msm_reduce_segments_kernel", "msm_reduce_rows_kernel"),
-    "ntt_block": ("ntt_block_kernel",), "point_add": ("point_add_kernel",),
+    "ntt_block": ("ntt_block_kernel",),
+    "point_add": ("point_sum_kernel",),
     "point_dbl_k": ("point_dbl_k_kernel", "point_dbl_k_pair_kernel"),
     "point_to_affine": ("point_to_affine_kernel",),
     "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
@@ -3110,8 +3195,10 @@ def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict
 
 def multichip_only(args, dev, rng, card) -> int:
     """--multichip-only: the fixtures (made unless --fixture-dir holds them),
-    then `multichip_phase` with K15's row; writes chip_smoke_multichip.json
-    into OUT_DIR."""
+    K6 at the large circuit's shapes (`check_acc_windows`), then
+    `multichip_phase` with K15's row; writes chip_smoke_multichip.json into
+    OUT_DIR. It calls only entry points every tree with `parallel/` has, so it
+    also runs beside an earlier tree's package."""
     from icicle_snark_tpu_torch import kernels
     from icicle_snark_tpu_torch.prover import api
 
@@ -3125,12 +3212,16 @@ def multichip_only(args, dev, rng, card) -> int:
     cache_big = api.CacheManager("cuda").get(big["zkey"])
     rep, counts, failures = Report(), {}, []
     warm_card(dev)
+    if not check_acc_windows(rep, rng, cache_big, dev):
+        failures.append("kernel point_add differs from its plain version")
     readings = multichip_phase(rep, rng, dev, big, cache_big, small, counts, failures)
-    k = kernels.FOUR_STEP
-    ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
-    rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-             "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
-             "library_ms": None, **rep.rows.get(k.name, {})}]
+    rows = []
+    for k in (kernels.POINT_ADD, kernels.FOUR_STEP):
+        ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
+        rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                     "launches": ran[0][1] if ran else 0,
+                     "launched_on": ran[0][0] if ran else None, "library_ms": None,
+                     **rep.rows.get(k.name, {})})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_multichip.json"), "w") as fh:
         json.dump({"card": card, "multichip": readings, "path_counts": counts, "kernels": rows,
@@ -3300,9 +3391,9 @@ def main() -> int:
                     help="build, check K12-K14, K16 and K17 against their plain versions, "
                          "drive the other curves' MSMs, msm(), NTTs and vec-ops, and stop")
     ap.add_argument("--multichip-only", action="store_true",
-                    help="build, check K15 against its plain version, prove complex-M at D = 2, "
-                         "4 and 8 and complex-N at D = 8 on meshes of this card, one process "
-                         "over NCCL, and stop")
+                    help="build, check K6 and K15 against their plain versions, prove complex-M "
+                         "at D = 2, 4 and 8 and complex-N at D = 8 on meshes of this card, one "
+                         "process over NCCL, and stop (usable from an earlier tree)")
     ap.add_argument("--precompute-only", action="store_true",
                     help="build, check and time K7 and K11 (G1 and G2) against their plain "
                          "versions with their registers, and stop (usable from an earlier tree)")
@@ -3565,8 +3656,10 @@ def main() -> int:
         if variants["NTT forced to K3"]["launches"]["ntt_block"] != 0:
             failures.append(f"{tag}: the K3-forced route launched K5")
     sliced_launches = variants["MSM sliced, max_lanes 2^21"]["launches"]
-    if g1_lanes > (1 << 21) and sliced_launches["point_add"] == 0:
-        failures.append(f"{tag}: the sliced route did not launch K6")
+    slicing = (g1_lanes > (1 << 21)) + (g2_lanes > (1 << 20))  # G2 slices at half the lanes
+    if sliced_launches["point_add"] != slicing:
+        failures.append(f"{tag}: the sliced route launched K6 {sliced_launches['point_add']} "
+                        f"times, not once for each of the {slicing} groups that slice")
     big_plan_ms = time_msm_plans(cache_big, big, dev, reps=2, g2_plans=c_sweep + ((None, 2),),
                                  g1_plans=c_sweep + ((None, 2),))
     cm_f2 = api.CacheManager("cuda", msm_plan=((cache_big.msm_c, 1), (cache_big.msm_c2, 2)))

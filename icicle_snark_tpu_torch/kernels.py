@@ -144,8 +144,8 @@ _SIGNATURES = {
     "snark_msm_reduce": [_I, _I, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP],
     # x, tw, mul, mul_lanes, out, batch, n, log_n, low, k, tcols_log, inverse, stream
     "snark_ntt_block": [_VP, _VP, _VP, _LL, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP],
-    # g2, out, a, b, n, stream
-    "snark_point_add": [_I, _VP, _VP, _VP, _LL, _VP],
+    # g2, out, stacks, s, n, stream
+    "snark_point_sum": [_I, _VP, _VP, _LL, _LL, _VP],
     # g2, out, in, n, k, stream
     "snark_point_dbl_k": [_I, _VP, _VP, _LL, _I, _VP],
     # g2, out_x, out_y, in, n, stream
@@ -173,8 +173,8 @@ _SIGNATURES = {
     "snark_msm_n_occupancy": [_I, _I, _VP],
     # field, x, tw (stage-major), scale, batch, n, m, inverse, stream
     "snark_ntt_stage_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
-    # out, x, tlo, thi, batch, n1, n2_loc, d, shard, s_log, stream
-    "snark_four_step": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _VP],
+    # out, x, tlo, thi, batch, n1, n2_loc, d, shard, s_log, tile, stream
+    "snark_four_step": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _I, _VP],
     # field (KERNEL_FIELDS), out, a, exponent (host words), nbits, nb, n, stream
     "snark_field_pow_n": [_I, _VP, _VP, _VP, _I, _LL, _LL, _VP],
     # op, field (KERNEL_FIELDS), out, in, rows, n, blocks, stream
@@ -230,8 +230,9 @@ NTT_BLOCK = Kernel(
     "icicle_snark_tpu/ops/mxu_ntt.py:350",
 )
 POINT_ADD = Kernel(
-    "point_add", "snark_point_add", "icicle_snark_tpu_torch/csrc/point_vec.cu",
-    "icicle_snark_tpu/ops/msm.py:961",
+    "point_add", "snark_point_sum",
+    "icicle_snark_tpu_torch/csrc/point_vec.cu; icicle_snark_tpu_torch/csrc/point_sum.cuh",
+    "icicle_snark_tpu/ops/msm.py:961; icicle_snark_tpu/parallel/msm_shard.py:35",
 )
 POINT_DBL_K = Kernel(
     "point_dbl_k", "snark_point_dbl_k", "icicle_snark_tpu_torch/csrc/precompute.cu",
@@ -296,7 +297,8 @@ NTT_BLOCK_N = Kernel(
 )
 # The sharded prove (parallel/)
 FOUR_STEP = Kernel(
-    "four_step_twiddle", "snark_four_step", "icicle_snark_tpu_torch/csrc/four_step.cu",
+    "four_step_twiddle", "snark_four_step",
+    "icicle_snark_tpu_torch/csrc/four_step.cu; icicle_snark_tpu_torch/csrc/four_step.cuh",
     "icicle_snark_tpu/parallel/ntt_dist.py:70",
 )
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,

@@ -24,8 +24,8 @@ Two variants of the JAX package's large-circuit path ride on the same
 kernels:
   * sliced (`msm_windows_sliced`): past `MSM_MAX_LANES` point lanes the
     concatenated lanes are cut into fixed-width slices, each slice runs
-    steps 1-4 with per-lane group ids, and `acc_windows` (K6) adds the
-    slices' window sums in slice order;
+    steps 1-4 with per-lane group ids, and `sum_windows` (K6) adds the
+    slices' window sums in one launch;
   * precomputed bases (`precompute_bases`, K7): with factor f the key holds
     f affine copies 2^(c*wp*m) * P of every base, interleaved at lane
     i*f + m, and the W = ceil(256/c) digit windows merge into
@@ -604,35 +604,56 @@ def _msm_reduce_n(buckets, windows: int, groups: int, half: int, grp):
 
 # ---------------------------------------------------------------- K6
 
-def acc_windows_plain(acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """Plain version of K6: jcurve.padd over the flattened (G, W) lanes."""
-    g2 = acc.dim() == 5
-    ops = _ops(g2, True)
-    a, b = acc.flatten(-2), new.flatten(-2)
-    out = jc.point_stack(jc.padd(ops, jc.point_unstack(a), jc.point_unstack(b)))
-    return out.reshape(acc.shape)
+SUM_MAX_STACKS = 1024  # stacks one K6 launch sums (P / 2 <= 512 thread pairs a lane)
+
+
+def sum_windows_plain(stacks: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: the S stacks padded with identities to a power
+    of two, then level k adds element i + 2^k onto element i for i a
+    multiple of 2^(k + 1) (icicle_snark_tpu/ops/msm.py _roll_reduce, the
+    order of the mesh combine), jcurve.padd over the flattened lanes."""
+    ops = _ops(stacks.dim() == 6, True)
+    pts = [s.flatten(-2) for s in stacks.unbind(0)]
+    ident = jc.point_stack(jc.identity(ops, pts[0].shape[-1], stacks.device))
+    pts += [ident] * ((1 << (len(pts) - 1).bit_length()) - len(pts))
+    while len(pts) > 1:
+        pts = [jc.point_stack(jc.padd(ops, jc.point_unstack(a), jc.point_unstack(b)))
+               for a, b in zip(pts[0::2], pts[1::2])]
+    return pts[0].reshape(stacks.shape[1:])
+
+
+def sum_windows(stacks: torch.Tensor) -> torch.Tensor:
+    """The lane-wise sum of S stacks of window sums, (S, 3, 8, G, W) for G1
+    or (S, 3, 2, 8, G, W) for G2, in the tree order of `sum_windows_plain`:
+    one K6 launch for a CUDA tensor (none for S = 1). Complete projective
+    additions, so identities (z = 0) pass through."""
+    g2 = stacks.dim() == 6
+    if (stacks.dtype != torch.int32 or stacks.dim() not in (5, 6) or stacks.shape[1] != 3
+            or stacks.shape[-3] != NLIMB or (g2 and stacks.shape[2] != 2)
+            or not 1 <= stacks.shape[0] <= SUM_MAX_STACKS):
+        raise ValueError(f"sum_windows: want int32 (S, 3, [2,] 8, G, W), 1 <= S <= "
+                         f"{SUM_MAX_STACKS}, got {tuple(stacks.shape)}")
+    if stacks.shape[0] == 1:
+        return stacks[0]
+    if stacks.device.type == "cpu":
+        return sum_windows_plain(stacks)
+    if stacks.device.type != "cuda":
+        raise RuntimeError(f"sum_windows: unsupported device {stacks.device}")
+    stacks = stacks.contiguous()
+    out = torch.empty(stacks.shape[1:], dtype=torch.int32, device=stacks.device)
+    kernels.POINT_ADD.launch(int(g2), out.data_ptr(), stacks.data_ptr(), stacks.shape[0],
+                             stacks.shape[-1] * stacks.shape[-2])
+    return out
 
 
 def acc_windows(acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Lane-wise complete projective add of two stacks of window sums,
     (3, 8, G, W) for G1 or (3, 2, 8, G, W) for G2 (icicle_snark_tpu/ops/
-    msm.py _acc_windows). Identities (z = 0) on either side pass through."""
-    g2 = acc.dim() == 5
-    if (acc.shape != new.shape or acc.dtype != torch.int32 or new.dtype != torch.int32
-            or acc.dim() not in (4, 5) or acc.shape[0] != 3 or acc.shape[-3] != NLIMB
-            or acc.device != new.device):
-        raise ValueError(
-            f"acc_windows: want two int32 (3, [2,] 8, G, W), got {tuple(acc.shape)}, "
-            f"{tuple(new.shape)}")
-    if acc.device.type == "cpu":
-        return acc_windows_plain(acc, new)
-    if acc.device.type != "cuda":
-        raise RuntimeError(f"acc_windows: unsupported device {acc.device}")
-    acc, new = acc.contiguous(), new.contiguous()
-    out = torch.empty_like(acc)
-    kernels.POINT_ADD.launch(int(g2), out.data_ptr(), acc.data_ptr(), new.data_ptr(),
-                             acc.shape[-1] * acc.shape[-2])
-    return out
+    msm.py _acc_windows): `sum_windows` at S = 2, one K6 launch."""
+    if acc.shape != new.shape or acc.device != new.device:
+        raise ValueError(f"acc_windows: want two stacks of one shape, got {tuple(acc.shape)}, "
+                         f"{tuple(new.shape)}")
+    return sum_windows(torch.stack((acc, new)))
 
 
 # ---------------------------------------------------------------- K7: precompute
@@ -728,11 +749,11 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_
     msm_windows_sliced): the concatenated lanes are cut into slices of
     max_lanes // precompute scalars (group boundaries may fall inside a
     slice; per-lane group ids keep the buckets apart), every slice runs
-    the in-core pipeline, and K6 adds the slices' window sums in slice
-    order. The last slice is padded to the slice width with lanes of the
-    sentinel group len(group_sizes), zero scalars and (0, 0) points, so
-    every slice has one shape. records as for `msm_window_sums`. Returns
-    stacked (3, coords..., G, wp)."""
+    the in-core pipeline, and one K6 launch sums the slices' window sums
+    (`sum_windows`, in its tree order). The last slice is padded to the
+    slice width with lanes of the sentinel group len(group_sizes), zero
+    scalars and (0, 0) points, so every slice has one shape. records as for
+    `msm_window_sums`. Returns stacked (3, coords..., G, wp)."""
     total = sum(group_sizes)
     if scalars.shape[-1] != total or records.shape[0] != total * precompute:
         raise ValueError("msm_windows_sliced: scalar and point lanes differ")
@@ -743,7 +764,7 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_
     dev = scalars.device
     gid = torch.repeat_interleave(
         torch.arange(groups, device=dev), torch.tensor(list(group_sizes), device=dev))
-    acc = None
+    parts = []
     for lo in range(0, max(total, 1), width):
         hi = min(lo + width, total)
         sc, ids = scalars[:, lo:hi], gid[lo:hi]
@@ -753,9 +774,8 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_
             sc = torch.cat([sc, sc.new_zeros((NLIMB, pad))], dim=-1)
             ids = torch.cat([ids, ids.new_full((pad,), groups)])
             rec = torch.cat([rec, rec.new_zeros((pad * precompute, rec.shape[1]))])
-        ws = _window_sums(sc, (ids, groups), rec, c, precompute)
-        acc = ws if acc is None else acc_windows(acc, ws)
-    return acc
+        parts.append(_window_sums(sc, (ids, groups), rec, c, precompute))
+    return sum_windows(torch.stack(parts))
 
 
 # ---------------------------------------------------------------- host side

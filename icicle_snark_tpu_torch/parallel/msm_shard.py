@@ -1,11 +1,11 @@
 """The MSM over a device mesh (kernels K4 and K6).
 
 The port's counterpart of icicle_snark_tpu/parallel/msm_shard.py: each
-shard runs the grouped Pippenger window sums (ops/msm.py, K4; sliced with
-K6 between slices past max_lanes) over its own lanes, the window sums of
-all shards are gathered and added pairwise in shard order with K6. The
-order is fixed, so the result is the same at any mesh size and in every
-process.
+shard runs the grouped Pippenger window sums (ops/msm.py, K4; sliced past
+max_lanes, the slices summed by one K6 launch) over its own lanes, and the
+window sums of all shards are gathered and summed by one K6 launch in the
+JAX package's tree order over the shards (`sum_windows`). The order is
+fixed, so the result is the same in every process.
 """
 
 from __future__ import annotations
@@ -17,15 +17,12 @@ from .mesh import on_device
 
 
 def combine_windows(mesh, ws: list) -> torch.Tensor:
-    """Every shard's window sums (3, coords..., G, W), gathered and added
-    pairwise in shard order with K6: the mesh's total, on this process's
+    """Every shard's window sums (3, coords..., G, W), gathered and summed
+    in shard order by one K6 launch: the mesh's total, on this process's
     first device."""
     pts = mesh.all_gather(ws)
     with on_device(pts[0].device):
-        while len(pts) > 1:
-            nxt = [msm_ops.acc_windows(pts[i], pts[i + 1]) for i in range(0, len(pts) - 1, 2)]
-            pts = nxt + pts[len(pts) - len(pts) % 2:]
-    return pts[0]
+        return msm_ops.sum_windows(torch.stack(pts))
 
 
 def msm_window_sums_local(mesh, scalars: list, widths, records: list, c: int, max_lanes: int,

@@ -53,20 +53,27 @@ def can_distribute(log_n: int, d: int) -> bool:
 
 # ---------------------------------------------------------------- K15
 
+# K15's tiles (k1, i2_loc), csrc/four_step.cu's order, and the one it runs
+# (read at every call, so the chip script can sweep them)
+FOUR_STEP_TILES = ((32, 8), (32, 16), (64, 8))
+FOUR_STEP_TILE = (32, 8)
+
 _TABLES: dict = {}
 
 
 def twiddle_tables(log_n: int, device, inverse: bool) -> tuple:
     """(tlo, thi, s): the powers w^0 .. w^(2^s - 1) and (w^(2^s))^0 ..
-    (w^(2^s))^(n/2^s - 1), (8, .) Montgomery, w the 2^log_n-th root (its
-    inverse when `inverse`), s = ceil(log_n / 2); w^e = thi[e >> s]
-    tlo[e & (2^s - 1)]. Built once per (log_n, device, direction)."""
+    (w^(2^s))^(n/2^s - 1), Montgomery and lane-major, (., 8): an entry's 8
+    words side by side, as K15 reads them; w the 2^log_n-th root (its inverse
+    when `inverse`), s = ceil(log_n / 2); w^e = thi[e >> s] tlo[e & (2^s -
+    1)]. Built once per (log_n, device, direction)."""
     key = (log_n, str(torch.device(device)), inverse)
     if key not in _TABLES:
         w = pow(W[log_n], -1, R_MOD) if inverse else W[log_n]
         s = (log_n + 1) // 2
-        _TABLES[key] = (powers_mont(w, s, device), powers_mont(pow(w, 1 << s, R_MOD),
-                                                               log_n - s, device), s)
+        _TABLES[key] = (powers_mont(w, s, device).t().contiguous(),
+                        powers_mont(pow(w, 1 << s, R_MOD), log_n - s, device).t().contiguous(),
+                        s)
     return _TABLES[key]
 
 
@@ -78,7 +85,7 @@ def four_step_twiddle_plain(x: torch.Tensor, tables: tuple, shard: int, d: int) 
     dev = x.device
     i2 = shard * n2_loc + torch.arange(n2_loc, device=dev)
     e = (i2[:, None] * torch.arange(n1, device=dev)[None, :]).flatten()
-    f = lb.field_op_plain(OP_MUL, thi[:, e >> s], tlo[:, e & ((1 << s) - 1)], FR_SPEC)
+    f = lb.field_op_plain(OP_MUL, thi[e >> s].t(), tlo[e & ((1 << s) - 1)].t(), FR_SPEC)
     f = f.reshape(NLIMB, n2_loc, n1).permute(1, 0, 2)  # (n2/D, 8, n1)
     y = lb.field_op_plain(OP_MUL, x.reshape(b * n2_loc, NLIMB, n1), f, FR_SPEC)
     y = y.reshape(b, n2_loc, NLIMB, d, n1 // d)
@@ -97,7 +104,7 @@ def four_step_twiddle(x: torch.Tensor, tables: tuple, shard: int, d: int) -> tor
     b, n2_loc, _, n1 = x.shape
     n = n1 * n2_loc * d
     if (n1 % d or n != 1 << (n.bit_length() - 1) or not 0 <= shard < d
-            or tlo.shape != (NLIMB, 1 << s) or thi.shape != (NLIMB, n >> s)):
+            or tlo.shape != (1 << s, NLIMB) or thi.shape != (n >> s, NLIMB)):
         raise ValueError(f"four_step_twiddle: bad shard {shard}/{d} or tables "
                          f"{tuple(tlo.shape)}, {tuple(thi.shape)} for n = {n}")
     if x.device.type == "cpu":
@@ -106,7 +113,8 @@ def four_step_twiddle(x: torch.Tensor, tables: tuple, shard: int, d: int) -> tor
         raise RuntimeError(f"four_step_twiddle: unsupported device {x.device}")
     out = torch.empty((d, b, n1 // d, NLIMB, n2_loc), dtype=torch.int32, device=x.device)
     kernels.FOUR_STEP.launch(out.data_ptr(), x.data_ptr(), tlo.contiguous().data_ptr(),
-                             thi.contiguous().data_ptr(), b, n1, n2_loc, d, shard, s)
+                             thi.contiguous().data_ptr(), b, n1, n2_loc, d, shard, s,
+                             FOUR_STEP_TILES.index(FOUR_STEP_TILE))
     return out
 
 

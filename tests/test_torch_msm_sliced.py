@@ -192,3 +192,38 @@ def test_acc_windows_matches_jax_with_identities(g2):
     assert flat[0] == b_aff[0] and flat[1] == a_aff[1] and flat[2] == zero and flat[4] == zero
     with pytest.raises(ValueError):
         msm.acc_windows(acc, new[..., :3])
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_sliced_route_sums_its_slices_in_one_call(g2, monkeypatch):
+    """The sliced route keeps every slice's window sums and adds them with
+    one `sum_windows` call over all slices (one K6 launch on the card), in
+    its tree order: equal word for word to `sum_windows_plain` over the
+    slices' own window sums, and as affine points to the chain of JAX
+    `_acc_windows` over them, the JAX package's sliced accumulation."""
+    aff = _g2_aff(20) if g2 else _g1_aff(20)
+    rng = np.random.default_rng(37 + g2)
+    vals = [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=20, dtype=np.uint64)]
+    scalars = lb.ints_to_limbs(vals)
+    points = msm.point_records(_port_g2(aff) if g2 else _port_g1(aff))
+    calls = []
+    real = msm.sum_windows
+
+    def spy(stacks):
+        calls.append(stacks.clone())
+        return real(stacks)
+
+    monkeypatch.setattr(msm, "sum_windows", spy)
+    sliced = msm.msm_windows_sliced(scalars, [20], points, C, max_lanes=6)
+    assert len(calls) == 1 and calls[0].shape[0] == 4  # slices of 6, 6, 6 and 2 + 4 padding
+    assert torch.equal(sliced, msm.sum_windows_plain(calls[0]))
+    to_j = ((lambda t: np.moveaxis(lb.to_jax_limbs(np.moveaxis(t.numpy(), -3, 0)), (0, 1, 2),
+                                   (1, 0, 2))) if g2 else
+            (lambda t: np.moveaxis(lb.to_jax_limbs(np.moveaxis(t.numpy(), -3, 0)), 0, 1)))
+    chain = jnp.asarray(to_j(calls[0][0]))
+    for part in calls[0][1:]:
+        chain = jmsm._acc_windows(g2, chain, jnp.asarray(to_j(part)))
+    jhost = jmsm.window_points_to_host_g2 if g2 else jmsm.window_points_to_host_g1
+    to_aff = cv.g2_to_affine if g2 else cv.g1_to_affine
+    assert _affine_windows(sliced.numpy(), 0, g2) == [to_aff(p) for p in
+                                                      jhost(np.asarray(chain), 0)]
