@@ -10,6 +10,7 @@
     python3 chip_smoke.py --multichip-only  # K6, K15 and the sharded prove on meshes of this card
     python3 chip_smoke.py --precompute-only # K7 and K11 against plain, timed, with registers
     python3 chip_smoke.py --curves-msm-only # K13 alone at the six full-width MSMs, by stage
+    python3 chip_smoke.py --ntt-only        # K3's register passes, K5 and K14's routes, the sweeps
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -21,7 +22,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
   3. hold every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs at the main path's shapes plus edge values
      (0, 1, p-1; the identity, P+P, P+(-P)); time both with CUDA events
-     (K1-K4, K7 at complex-N shapes (G2 on a pair of threads a lane, with
+     (K1-K4, K7 at complex-N shapes; K3's register passes at every R and
+     its one-stage entry, driven once more as a counted round trip, beside
+     K5 on the same pair (G2 on a pair of threads a lane, with
      its registers), K4 at every lane of both MSMs; K5, K6
      and K4 once more at the large circuit's shapes in phase 7; K9-K11 in
      phase 6; K8 at the probe's);
@@ -61,7 +64,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      bit-valued witness; four deterministic proofs (default in-core route
      with K5, NTT forced to K3, MSM forced into slices of 2^21 lanes with
      K6 once for each group that slices, G2 bases precomputed with factor
-     2) that must be byte-identical; a
+     2) that must be byte-identical, the K3 route with 2 ceil(log n / R)
+     register-pass launches and no K5 launch; a
      deterministic and a randomized proof verify; the MSMs at c = 12..16;
   8. the probe entry point (K8), every (op, W);
   9. complex(40, 50): the port's device setup gives the host oracle's zkey
@@ -77,13 +81,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
      bw6-761) through the pipeline `curves/device.py` `msm` runs, equal in
      affine form to the host's sum over the 64-point pool, timed (K13's
      accumulate levels and reduce stages apart, `k13_times`); `msm()`
-     itself at 2^16 lanes from host lists; K14 over the three Fr, its passes
-     (ntt_block_n, the default route) and its one-stage kernel
-     (ntt_stage_n, forced): the pair on each route against the other and
-     against the plain stages and plain passes at 2^12 (batch 2) and at
-     2^22, 2^4 against a host DFT, the round trip and a coset round trip
-     through `ntt(spec=...)` at 2^22 on the passes and the round trip on
-     the one-stage route, both routes timed and the passes at three tiles;
+     itself at 2^16 lanes from host lists; K14 over the three Fr, its tile
+     passes (ntt_block_n, the default route), its register passes
+     (ntt_radix_n, forced) and its one-stage entry (ntt_stage_n): the pair
+     on each against the others and against the plain stages and plain
+     passes at 2^12 (batch 2) and at 2^22, 2^4 against a host DFT, the round
+     trip and a coset round trip through `ntt(spec=...)` at 2^22 on the tile
+     passes, the round trip on the register passes and at 2^12 on the
+     one-stage entry, all three timed, the tile passes at three tiles and
+     the register passes at every R;
      K16 (field_pow_n) on the five fields
      word for word against its plain version (the inverse over 2^24, 2^22
      and 2^20 lanes at 8, 12 and 24 words, the plain version on 2^12; other
@@ -522,24 +528,102 @@ def sass_census(sources=("ntt_block.cu", "r1cs.cu", "field_vec.cu", "field_pow.c
     return out
 
 
-def check_ntt(rep, rng, cache, dev):
+def radix_pair(x, dom, r=None):
+    """The inverse (1/n fused into its low = 0 pass) and then the forward
+    transform of x on K3's register passes (ntt_radix, or ntt_radix_n for
+    the other Fr; NTT_BLOCK_MIN_LOG patched past the domain), at r stages a
+    pass where given (NTT_RADIX_LOG patched), else at the default."""
+    from icicle_snark_tpu_torch.ops import ntt
+
+    patches = [(ntt, "NTT_BLOCK_MIN_LOG", 99)]
+    if r is not None:
+        patches.append((ntt, "NTT_RADIX_LOG", {**ntt.NTT_RADIX_LOG, dom.spec.words: r}))
+    with patched(*patches):
+        inv = ntt.intt_dif(x, dom)
+        return inv, ntt.ntt_dit(inv, dom)
+
+
+def one_stage_pair(x, dom):
+    """The same pair on the one-stage entries, one launch a stage:
+    ntt_stage over the natural power tables (BN254 Fr), ntt_stage_n over
+    the stage-major ones (the other Fr)."""
+    from icicle_snark_tpu_torch.ops import ntt
+
+    spec = dom.spec
+
+    def stage(y, s, inverse, scale=None):
+        if spec.bn254:
+            ntt.ntt_stage(y, dom.tw_inv if inverse else dom.tw_fwd, 1 << s, inverse, scale)
+        else:
+            ntt.ntt_stage_n(y, dom.stw_inv if inverse else dom.stw_fwd, 1 << s, inverse, spec,
+                            scale)
+
+    y = x.clone()
+    for s in range(dom.log_n, 0, -1):
+        stage(y, s, True, dom.n_inv_mont if s == 1 else None)
+    inv = y.clone()
+    for s in range(1, dom.log_n + 1):
+        stage(y, s, False)
+    return inv, y
+
+
+# the struct names of csrc/field_n.cuh by K12 selector (curves/device.py KERNEL_FIELDS)
+RADIX_STRUCTS = {0: "Bls377Fr", 1: "Bls377Fq", 2: "Bls381Fr"}
+
+
+def radix_adapter(spec) -> str:
+    """The mangled name of spec's field layer in csrc/ntt_radix.cuh."""
+    if spec.bn254:
+        return "7RadixFr"
+    name = RADIX_STRUCTS[spec.field_id]
+    return f"6RadixNI{len(name)}{name}E"
+
+
+def radix_build(spec, r: int) -> str:
+    """Registers, stack and spills of the register pass kernels at r stages
+    (both directions) of `spec`'s instance, from the build log."""
+    return kernel_usage("ntt.cu" if spec.bn254 else "ntt_n.cu",
+                        f"ntt_radix_kernelI{radix_adapter(spec)}Li{r}ELb")
+
+
+def radix_sweep(x, dom, want, reps: int = 5) -> dict:
+    """K3's register passes at every R the field's words take: each pair
+    against `want` (the plain pair's words) and timed (CUDA events), with
+    its launches and the build's registers and spills."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.ops import ntt
+
+    spec = dom.spec
+    name = (kernels.NTT_RADIX if spec.bn254 else kernels.NTT_RADIX_N).name
+    out = {}
+    for r in range(1, ntt.RADIX_MAX[spec.words] + 1):
+        launched = {}
+        got = counted(launched, lambda: radix_pair(x, dom, r))
+        out[f"R {r}"] = dict(
+            equal=all(bool(torch.equal(a, b)) for a, b in zip(got, want)),
+            ms=cuda_time(lambda: radix_pair(x, dom, r), reps),
+            launches=launched.get(name, 0), build=radix_build(spec, r))
+        del got
+    return out
+
+
+def check_ntt(rep, rng, dom, dev, counts_log):
+    """K3 at (3, 8, n): the register passes (the default R) and the
+    one-stage entry, each transform pair against the plain stages word for
+    word and timed, the register passes at every R
+    (`radix_sweep`), and K5's passes on the same pair beside them. The
+    one-stage entry is driven once more on another input, counted, as a
+    round trip that must give the input back."""
+    import torch
+
     from icicle_snark_tpu_torch import kernels
     from icicle_snark_tpu_torch.fields import limbs as lb
     from icicle_snark_tpu_torch.ops import ntt
 
-    dom = cache.domain
     n = dom.n
     x = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
-
-    def kernel_pair():
-        """K3 stage by stage (whatever route the domain size would pick)."""
-        y = x.clone()
-        for s in range(dom.log_n, 0, -1):
-            ntt.ntt_stage(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
-        inv = y.clone()
-        for s in range(1, dom.log_n + 1):
-            ntt.ntt_stage(y, dom.tw_fwd, 1 << s, False)
-        return inv, y
 
     def plain_pair():
         y = x.clone()
@@ -551,20 +635,50 @@ def check_ntt(rep, rng, cache, dev):
             y = ntt.ntt_stage_plain(y, dom.tw_fwd, 1 << s, False)
         return inv, y
 
-    inv_k, fwd_k = kernel_pair()
-    inv_p, fwd_p = plain_pair()
+    def block_pair():
+        with patched((ntt, "NTT_BLOCK_MIN_LOG", 1)):
+            inv = ntt.intt_dif(x, dom)
+            return inv, ntt.ntt_dit(inv, dom)
+
+    (inv_p, fwd_p), plain_ms = timed_once(plain_pair)
+    inv_k, fwd_k = one_stage_pair(x, dom)
     err = max(max_word_err(inv_k, inv_p), max_word_err(fwd_k, fwd_p))
     roundtrip = bool((fwd_k == x).all())
-    log(f"  ntt_stage (3, 8, 2^{dom.log_n}) intt+ntt: max word err {err}, roundtrip {roundtrip}")
-    ms = cuda_time(kernel_pair, 10)
-    plain_ms = cuda_time(plain_pair, 1, False)
+    x2 = random_field(rng, lb.FR_SPEC.modulus, (3, n), dev)
+    back = counted(counts_log.setdefault(f"2^{dom.log_n}: ntt_stage round trip", {}),
+                   lambda: one_stage_pair(x2, dom)[1])
+    roundtrip &= bool(torch.equal(back, x2))
+    del back, x2
+    inv_r, fwd_r = radix_pair(x, dom)
+    err_radix = max(max_word_err(inv_r, inv_p), max_word_err(fwd_r, fwd_p))
+    inv_b, fwd_b = block_pair()
+    err_block = max(max_word_err(inv_b, inv_p), max_word_err(fwd_b, fwd_p))
+    del inv_k, fwd_k, inv_r, fwd_r, inv_b, fwd_b
+    sweep = radix_sweep(x, dom, (inv_p, fwd_p))
+    ms = cuda_time(lambda: one_stage_pair(x, dom), 10)
+    radix_ms = cuda_time(lambda: radix_pair(x, dom), 10)
+    block_ms = cuda_time(block_pair, 10)
+    r = ntt.NTT_RADIX_LOG[8]
+    passes = ntt.radix_passes(dom.log_n, r)
     butterflies = 2 * dom.log_n * 3 * n // 2
     bms, by = bound(2 * 3 * n * 32 + 2 * n * 32, (butterflies + 3 * n) * MULS_PER_MONT)
+    log(f"  ntt_stage (3, 8, 2^{dom.log_n}) intt+ntt, {2 * dom.log_n} launches: max word err "
+        f"{err}, roundtrip {roundtrip}, {ms:.4f} ms; ntt_radix R {r} ({2 * len(passes)} "
+        f"launches, passes {passes}): max word err {err_radix}, {radix_ms:.4f} ms; ntt_block "
+        f"(K5) max word err {err_block}, {block_ms:.4f} ms; bound {bms:.4f} ({by}); plain "
+        f"{plain_ms:.0f} ms")
+    log(f"  ntt_radix sweep at (3, 8, 2^{dom.log_n}): " + json.dumps(sweep))
     ok = err == 0 and roundtrip
+    ok_radix = err_radix == 0 and err_block == 0 and all(v["equal"] for v in sweep.values())
+    timed = f"intt_dif + ntt_dit, (3, 8, 2^{dom.log_n})"
     rep.add(kernels.NTT.name, equal_to_plain=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by,
-            timed=f"intt_dif + ntt_dit, (3, 8, 2^{dom.log_n}), {2 * dom.log_n} launches")
-    return ok
+            bound_ms=bms, bound_by=by, timed=f"{timed}, {2 * dom.log_n} launches",
+            build=kernel_usage("ntt.cu", "ntt_stage_kernel"))
+    rep.add(kernels.NTT_RADIX.name, equal_to_plain=ok_radix, max_abs_err=err_radix, ms=radix_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            timed=f"{timed}, R {r}, {2 * len(passes)} launches", sweep=sweep,
+            stage_entry_ms=ms, block_ms=block_ms, build=radix_build(lb.FR_SPEC, r))
+    return ok and ok_radix
 
 
 def _edge_msm_inputs(rng, dev, g2: bool):
@@ -945,11 +1059,12 @@ def k4_sweep(cache, dev, rng, pieces=(8, 16, 32, 64),
 # ---------------------------------------------------------------- K5-K8
 
 def check_ntt_block(rep, rng, dom, dev):
-    """K5 at (3, 8, n) against K3 stage by stage and against the plain
-    stages, word for word; K5 (at tiles of 2^10 and 2^11, each equal to the
-    default's words; a tile of 2^12 and its twiddles would need 256 KB of
-    shared memory) and K3 timed on the inverse + forward pair of one coset
-    evaluation."""
+    """K5 at (3, 8, n) against K3 stage by stage (the one-stage entry), K3's
+    register passes and the plain stages, word for word; K5 (at tiles of
+    2^10 and 2^11, each equal to the default's words; a tile of 2^12 and its
+    twiddles would need 256 KB of shared memory), the one-stage entry and
+    the register passes (the default, then every R)
+    timed on the inverse + forward pair of one coset evaluation."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -962,15 +1077,6 @@ def check_ntt_block(rep, rng, dom, dev):
     def pair(tile_log):
         with patched((ntt, "NTT_BLOCK_MIN_LOG", 1), (ntt, "NTT_TILE_LOG", tile_log)):
             return ntt.ntt_dit(ntt.intt_dif(x, dom), dom)
-
-    def stage_pair():
-        y = x.clone()
-        for s in range(log_n, 0, -1):
-            ntt.ntt_stage(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
-        inv = y.clone()
-        for s in range(1, log_n + 1):
-            ntt.ntt_stage(y, dom.tw_fwd, 1 << s, False)
-        return inv, y
 
     def plain_pair():
         y = x
@@ -985,15 +1091,19 @@ def check_ntt_block(rep, rng, dom, dev):
     with patched((ntt, "NTT_BLOCK_MIN_LOG", 1)):
         inv_b = ntt.intt_dif(x, dom)
         fwd_b = ntt.ntt_dit(inv_b, dom)
-    inv_s, fwd_s = stage_pair()
+    inv_s, fwd_s = one_stage_pair(x, dom)
+    inv_r, fwd_r = radix_pair(x, dom)
     (inv_p, fwd_p), plain_ms = timed_once(plain_pair)
     err_stage = max(max_word_err(inv_b, inv_s), max_word_err(fwd_b, fwd_s))
+    err_radix = max(max_word_err(inv_b, inv_r), max_word_err(fwd_b, fwd_r))
     err_plain = max(max_word_err(inv_b, inv_p), max_word_err(fwd_b, fwd_p))
+    del inv_s, fwd_s, inv_r, fwd_r, inv_p, fwd_p
     roundtrip = bool((fwd_b == x).all())
     passes = ntt.block_passes(log_n, tile)
     log(f"  ntt_block (3, 8, 2^{log_n}) intt+ntt, passes {passes}: max word err vs K3 stages "
-        f"{err_stage}, vs plain stages {err_plain}, roundtrip {roundtrip}")
-    ok = err_stage == 0 and err_plain == 0 and roundtrip
+        f"{err_stage}, vs K3's register passes {err_radix}, vs plain stages {err_plain}, "
+        f"roundtrip {roundtrip}")
+    ok = err_stage == 0 and err_radix == 0 and err_plain == 0 and roundtrip
     times = {}
     for t in (10, 11):
         if t > log_n:
@@ -1003,23 +1113,43 @@ def check_ntt_block(rep, rng, dom, dev):
         times[t] = cuda_time(lambda t=t: pair(t), 5)
         log(f"  ntt_block tile 2^{t} ({len(ntt.block_passes(log_n, t))} passes each way): "
             f"{times[t]:.3f} ms, equal {same}")
-    stage_ms = cuda_time(lambda: stage_pair(), 3)
-    log(f"  ntt_stage (K3) the same pair, {2 * log_n} launches: {stage_ms:.3f} ms")
+    stage_ms = cuda_time(lambda: one_stage_pair(x, dom), 3)
+    radix_ms = cuda_time(lambda: radix_pair(x, dom), 5)
+    sweep = radix_sweep(x, dom, (inv_b, fwd_b))
+    ok &= all(v["equal"] for v in sweep.values())
+    r = ntt.NTT_RADIX_LOG[8]
+    rpasses = ntt.radix_passes(log_n, r)
+    log(f"  ntt_stage (K3's one-stage entry) the same pair, {2 * log_n} launches: {stage_ms:.3f} "
+        f"ms; ntt_radix R {r}, {2 * len(rpasses)} launches: {radix_ms:.3f} ms; sweep "
+        + json.dumps(sweep))
     butterflies = 2 * log_n * 3 * n // 2
     bms, by = bound(2 * 3 * n * 32 + 2 * n * 32, (butterflies + 3 * n) * MULS_PER_MONT)
+    block_ms = times.get(tile) or cuda_time(lambda: pair(tile), 5)
     rep.add(kernels.NTT_BLOCK.name, equal_to_plain=ok, max_abs_err=max(err_stage, err_plain),
-            ms=times.get(tile) or cuda_time(lambda: pair(tile), 5),
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            ms=block_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             timed=f"intt_dif + ntt_dit, (3, 8, 2^{log_n}), {2 * len(passes)} launches, "
                   f"tile 2^{tile}",
             sweep_ms={f"tile {t}": v for t, v in times.items()},
-            stage_kernel_ms=stage_ms)
+            stage_kernel_ms=stage_ms, radix_ms=radix_ms)
+    rep.add(kernels.NTT_RADIX.name, large=dict(
+        equal_to_plain=err_radix == 0 and err_plain == 0, ms=radix_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, stage_entry_ms=stage_ms, block_ms=block_ms, sweep=sweep,
+        timed=f"intt_dif + ntt_dit, (3, 8, 2^{log_n}), R {r}, {2 * len(rpasses)} launches"))
+    rep.add(kernels.NTT.name, large=dict(ms=stage_ms, plain_ms=plain_ms, bound_ms=bms,
+                                         bound_by=by, equal_to_plain=err_stage == 0))
     return ok
 
 
-def ntt_threshold_sweep(dev, logs=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17)):
-    """K3 against K5 on the inverse + forward pair at batch 3, by domain
-    size: the measurement NTT_BLOCK_MIN_LOG is set from."""
+# the domains of the threshold sweep: K5 against K3's register passes and its
+# one-stage entry, the pair at batch 3
+NTT_SWEEP_LOGS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 21)
+
+
+def ntt_threshold_sweep(dev, logs=NTT_SWEEP_LOGS):
+    """K3 (its register passes at the default R and its one-stage entry)
+    against K5 on the inverse + forward pair at batch 3, by domain size:
+    the measurement NTT_BLOCK_MIN_LOG is set from. All three give the same
+    words at every size."""
     import torch
 
     from icicle_snark_tpu_torch.ops import ntt
@@ -1034,19 +1164,16 @@ def ntt_threshold_sweep(dev, logs=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14
             with patched((ntt, "NTT_BLOCK_MIN_LOG", 1)):
                 return ntt.ntt_dit(ntt.intt_dif(x, dom), dom)
 
-        def stages():
-            y = x.clone()
-            for s in range(log_n, 0, -1):
-                ntt.ntt_stage(y, dom.tw_inv, 1 << s, True, dom.n_inv_mont if s == 1 else None)
-            for s in range(1, log_n + 1):
-                ntt.ntt_stage(y, dom.tw_fwd, 1 << s, False)
-            return y
-
-        if not torch.equal(pair(), stages()):
+        block = pair()
+        if not (torch.equal(block, one_stage_pair(x, dom)[1])
+                and torch.equal(block, radix_pair(x, dom)[1])):
             raise RuntimeError(f"K5 differs from K3 at 2^{log_n}")
-        out[log_n] = {"stage_ms": cuda_time(stages, 10),
+        out[log_n] = {"stage_ms": cuda_time(lambda: one_stage_pair(x, dom), 10),
+                      "radix_ms": cuda_time(lambda: radix_pair(x, dom), 10),
                       "block_ms": cuda_time(pair, 10)}
-        log(f"  2^{log_n}: K3 {out[log_n]['stage_ms']:.4f} ms, K5 {out[log_n]['block_ms']:.4f} ms")
+        log(f"  2^{log_n}: K3 one-stage {out[log_n]['stage_ms']:.4f} ms, K3 register passes "
+            f"{out[log_n]['radix_ms']:.4f} ms, K5 {out[log_n]['block_ms']:.4f} ms")
+        del x, block, dom
     return out
 
 
@@ -2294,17 +2421,20 @@ NTT_N_TILES = ((10, 4), (10, 5), (11, 5))
 
 
 def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12) -> tuple:
-    """K14 for the three Fr: the transform pair through the passes (the
-    default from NTT_BLOCK_MIN_LOG up) against the one-stage route (the
-    constant patched past the domain), the plain stages and the plain
-    passes, word for word, at 2^plain_log (batch 2) and at 2^log_n (the
-    plain versions run on the card); at 2^4 against a host DFT; then driven
-    at 2^log_n: forward then inverse = identity, and `ntt(x, spec=fr,
-    cfg=NTTConfig(coset_gen))` forward then inverse = identity, on the
-    passes, and the round trip once more on the one-stage route; both
-    routes' pairs timed at 2^log_n beside the bound, and the passes at the
-    tiles of NTT_N_TILES. The domains' power tables and the coset products
-    run on K12. Only the driven calls are counted (`counted`)."""
+    """K14 for the three Fr: the transform pair through the tile passes (the
+    default from NTT_BLOCK_MIN_LOG up) against the register passes (K3's
+    template at N words, `ntt_radix_n`: the constant patched past the
+    domain), the one-stage entry (`ntt_stage_n`, a launch a stage), the
+    plain stages and the plain passes, word for word, at 2^plain_log (batch
+    2) and at 2^log_n (the plain versions run on the card); at 2^4 against a
+    host DFT; then driven at 2^log_n: forward then inverse = identity, and
+    `ntt(x, spec=fr, cfg=NTTConfig(coset_gen))` forward then inverse =
+    identity, on the tile passes, the round trip once more on the register
+    passes, and at 2^plain_log on the one-stage entry; the routes' pairs
+    timed at 2^log_n beside the bound, the tile passes at the tiles of
+    NTT_N_TILES and the register passes at every R
+    (`radix_sweep`). The domains' power tables and the coset products run
+    on K12. Only the driven calls are counted (`counted`)."""
     import torch
 
     from icicle_snark_tpu_torch import kernels
@@ -2313,7 +2443,7 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
     from icicle_snark_tpu_torch.fields import limbs as lb
     from icicle_snark_tpu_torch.ops import ntt as ntt_ops
 
-    def stage_route():
+    def radix_route():
         return patched((ntt_ops, "NTT_BLOCK_MIN_LOG", 99))
 
     def pair(x, dom):
@@ -2324,22 +2454,30 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
 
     ok, out = True, {}
     launched = counts_log["curves: NTTs"] = {}
-    launched_stage = counts_log["curves: NTTs, one-stage route"] = {}
+    launched_radix = counts_log["curves: NTTs, register-pass route"] = {}
+    launched_stage = counts_log["curves: NTTs, one-stage entry"] = {}
     for name in CURVES:
         fr = cdev.curve_specs(name)[1]
         w = fr.words
         passes = ntt_ops.ntt_n_passes(log_n)
         tile = ntt_ops.NTT_N_TILE_LOG
+        r = ntt_ops.NTT_RADIX_LOG[w]
+        rpasses = ntt_ops.radix_passes(log_n, r)
         mode = "lazy in [0, 2p)" if ntt_ops.block_n_lazy(fr) else "canonical"
-        # against the one-stage route and both plain versions, batched
+        # against the register passes, the one-stage entry and both plain
+        # versions, batched; the one-stage entry driven as a round trip
         dom = ntt_ops.get_domain(plain_log, dev, fr)
         x = random_field_n(gen, fr, (2, 1 << plain_log), dev)
         got = pair(x, dom)
-        with stage_route():
+        with radix_route():
             staged = pair(x, dom)
+        inv_s, fwd_s = one_stage_pair(x, dom)
         same_small = (same(got, staged) and same(got, _plain_pair(x, dom, fr))
-                      and same(got, _pass_plain_pair(x, dom, fr)))
-        del x, got, staged
+                      and same(got, _pass_plain_pair(x, dom, fr))
+                      and torch.equal(inv_s, got[1]))
+        back = counted(launched_stage, lambda: one_stage_pair(x, dom)[1])
+        same_stage_trip = bool(torch.equal(back, x) and torch.equal(fwd_s, x))
+        del x, got, staged, inv_s, fwd_s, back
         # against a host DFT at 2^4
         d4 = ntt_ops.get_domain(4, dev, fr)
         x4 = random_field_n(gen, fr, (1, 16), dev)
@@ -2351,19 +2489,20 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
         big = ntt_ops.get_domain(log_n, dev, fr)
         xb = random_field_n(gen, fr, (1, 1 << log_n), dev)
         got = pair(xb, big)
-        with stage_route():
+        with radix_route():
             staged = pair(xb, big)
-        same_stage = same(got, staged)
+        same_radix = same(got, staged)
         del staged
+        same_stage = bool(torch.equal(one_stage_pair(xb, big)[0], got[1]))
         plain, plain_ms = timed_once(lambda: _plain_pair(xb, big, fr))
-        same_big = same_stage and same(got, plain)
+        same_big = same_radix and same_stage and same(got, plain)
         del plain
         plain, pass_plain_ms = timed_once(lambda: _pass_plain_pair(xb, big, fr))
         same_big &= same(got, plain)
         del plain
         torch.cuda.empty_cache()
-        # the driven calls: the round trip and a coset on the passes, the
-        # round trip on the one-stage route
+        # the driven calls: the round trip and a coset on the tile passes, the
+        # round trip on the register passes
         back = counted(launched, lambda: ntt_ops.ntt_natural(ntt_ops.ntt_natural(xb, big), big,
                                                              inverse=True))
         same_trip = bool(torch.equal(back, xb))
@@ -2371,14 +2510,18 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
         coset = counted(launched, lambda: ntt_ops.ntt(ntt_ops.ntt(xb[0], cfg=cfg, spec=fr),
                                                       inverse=True, cfg=cfg, spec=fr))
         same_coset = bool(torch.equal(coset, xb[0]))
-        with stage_route():
-            back = counted(launched_stage, lambda: ntt_ops.ntt_natural(
+        with radix_route():
+            back = counted(launched_radix, lambda: ntt_ops.ntt_natural(
                 ntt_ops.ntt_natural(xb, big), big, inverse=True))
         same_trip &= bool(torch.equal(back, xb))
         del back, coset
         pair_ms = cuda_time(lambda: pair(xb, big), 5)
-        with stage_route():
-            stage_ms = cuda_time(lambda: pair(xb, big), 5)
+        with radix_route():
+            radix_ms = cuda_time(lambda: pair(xb, big), 5)
+        stage_ms = cuda_time(lambda: one_stage_pair(xb, big), 5)
+        # every R, on radix_pair's (inverse, then forward) order
+        sweep = radix_sweep(xb, big, (got[1], xb))
+        same_big &= all(v["equal"] for v in sweep.values())
         tiles = {}
         for t, c in NTT_N_TILES:
             with patched((ntt_ops, "NTT_N_TILE_LOG", t), (ntt_ops, "NTT_N_TILE_MIN_COLS_LOG", c)):
@@ -2397,25 +2540,34 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
         del xb
         ntt_ops.release_domain(log_n, dev)
         torch.cuda.empty_cache()
-        fine = same_small and same_big and same_dft and same_trip and same_coset
+        fine = same_small and same_big and same_dft and same_trip and same_coset and \
+            same_stage_trip
         ok &= fine
         out[fr.name] = dict(words=w, equal_to_plain=same_small and same_big,
-                            equal_to_plain_small=same_small, equal_to_stage_route=same_stage,
-                            dft=same_dft, round_trip=same_trip, coset_round_trip=same_coset,
-                            pair_ms=pair_ms, stage_pair_ms=stage_ms, bound_ms=pair_b[0],
-                            bound_by=pair_b[1], plain_pair_ms=plain_ms,
+                            equal_to_plain_small=same_small, equal_to_radix_route=same_radix,
+                            equal_to_stage_entry=same_stage, dft=same_dft, round_trip=same_trip,
+                            stage_entry_round_trip=same_stage_trip, coset_round_trip=same_coset,
+                            pair_ms=pair_ms, radix_pair_ms=radix_ms, stage_pair_ms=stage_ms,
+                            bound_ms=pair_b[0], bound_by=pair_b[1], plain_pair_ms=plain_ms,
                             pass_plain_pair_ms=pass_plain_ms, log_n=log_n, plain_log_n=plain_log,
-                            passes=passes, tile_log=tile, arithmetic=mode, tiles=tiles)
+                            passes=passes, tile_log=tile, arithmetic=mode, tiles=tiles,
+                            radix_log=r, radix_passes=rpasses, radix_sweep=sweep,
+                            radix_build=radix_build(fr, r),
+                            stage_build=radix_build(fr, 1))
         log(f"  ntt_block_n {fr.name} ({w} words, {mode}): passes {passes} at 2^{log_n}, tile "
-            f"2^{tile}; pair == one-stage route == plain stages == plain passes word for word at "
-            f"2^{plain_log} (batch 2): {same_small}, at 2^{log_n}: {same_big}; 2^4 == host DFT: "
-            f"{same_dft}; 2^{log_n} round trip (both routes): {same_trip}, coset round trip: "
-            f"{same_coset}; pair at 2^{log_n}: passes {pair_ms:.3f} ms ({2 * len(passes)} "
-            f"launches), one-stage route {stage_ms:.3f} ms ({2 * log_n} launches), bound "
-            f"{pair_b[0]:.3f} ({pair_b[1]}); plain pair {plain_ms:.0f} ms (stages), "
-            f"{pass_plain_ms:.0f} ms (passes); tiles " + json.dumps(tiles))
-    log("  launches of the driven NTT calls: passes "
-        + json.dumps({k: v for k, v in launched.items() if v}) + "; one-stage route "
+            f"2^{tile}; pair == register passes == one-stage entry == plain stages == plain "
+            f"passes word for word at 2^{plain_log} (batch 2): {same_small}, at 2^{log_n}: "
+            f"{same_big}; 2^4 == host DFT: {same_dft}; 2^{log_n} round trip (both routes): "
+            f"{same_trip}, coset round trip: {same_coset}, one-stage entry round trip at "
+            f"2^{plain_log}: {same_stage_trip}; pair at 2^{log_n}: tile passes {pair_ms:.3f} ms "
+            f"({2 * len(passes)} launches), register passes R {r} {radix_ms:.3f} ms "
+            f"({2 * len(rpasses)} launches), one-stage entry {stage_ms:.3f} ms ({2 * log_n} "
+            f"launches), bound {pair_b[0]:.3f} ({pair_b[1]}); plain pair {plain_ms:.0f} ms "
+            f"(stages), {pass_plain_ms:.0f} ms (passes); tiles " + json.dumps(tiles))
+        log(f"  ntt_radix_n {fr.name} sweep at 2^{log_n}: " + json.dumps(sweep))
+    log("  launches of the driven NTT calls: tile passes "
+        + json.dumps({k: v for k, v in launched.items() if v}) + "; register passes "
+        + json.dumps({k: v for k, v in launched_radix.items() if v}) + "; one-stage entry "
         + json.dumps({k: v for k, v in launched_stage.items() if v}))
     last = out[cdev.curve_specs(CURVES[-1])[1].name]
     common = dict(equal_to_plain=ok, max_abs_err=0.0 if ok else 1.0, bound_ms=last["bound_ms"],
@@ -2424,8 +2576,14 @@ def check_ntt_n(rep, gen, dev, counts_log, log_n: int = 22, plain_log: int = 12)
             build=kernel_usage("ntt_block_n.cu", ""),
             timed=f"bw6_761_fr forward + inverse over 2^{log_n} on the passes (plain passes on "
                   f"the card at the same size); every Fr under by_field", **common)
+    rep.add(kernels.NTT_RADIX_N.name, ms=last["radix_pair_ms"], plain_ms=last["plain_pair_ms"],
+            build=last["radix_build"],
+            timed=f"bw6_761_fr forward + inverse over 2^{log_n} on the register passes, R "
+                  f"{last['radix_log']} (plain stages on the card at the same size); every Fr "
+                  "under by_field", **common)
     rep.add(kernels.NTT_N.name, ms=last["stage_pair_ms"], plain_ms=last["plain_pair_ms"],
-            timed=f"bw6_761_fr forward + inverse over 2^{log_n} on the one-stage route (plain "
+            build=last["stage_build"],
+            timed=f"bw6_761_fr inverse then forward over 2^{log_n} on the one-stage entry (plain "
                   f"stages on the card at the same size); every Fr under by_field", **common)
     return ok, out
 
@@ -2633,7 +2791,7 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
     if not ok:
         failures.append("a curve NTT differs from its plain versions, the other route, the DFT "
                         "or the identity")
-    log(f"[kernels] ntt_block_n, ntt_stage_n and the curve NTTs in "
+    log(f"[kernels] ntt_block_n, ntt_radix_n, ntt_stage_n and the curve NTTs in "
         f"{time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     small_lanes = {8: 1 << 12, 12: 1 << 11, 24: 1 << 10}
@@ -2676,7 +2834,8 @@ def curves_phase(rep, rng, dev, counts_log, failures, small: bool = False) -> di
     log("[curves] K13 device ms by stage over the six MSMs: " + json.dumps(by_kernel))
     for path, names in (("curves: MSMs and msm()", ("msm_accumulate_n", "msm_reduce_n")),
                         ("curves: NTTs", ("ntt_block_n", "field_vec_n")),
-                        ("curves: NTTs, one-stage route", ("ntt_stage_n",)),
+                        ("curves: NTTs, register-pass route", ("ntt_radix_n",)),
+                        ("curves: NTTs, one-stage entry", ("ntt_stage_n",)),
                         ("curves: vec-ops", ("field_pow_n", "field_reduce_n"))):
         for k in names:
             if not counts_log.get(path, {}).get(k):
@@ -2907,7 +3066,7 @@ def multichip_phase(rep, rng, dev, big, cache_big, small, counts_log, failures) 
 # the device functions of each kernel of kernels.ALL
 KERNEL_FUNCTIONS = {
     "field_vec": ("field_vec_kernel",), "r1cs_rows": ("r1cs_rows_kernel", "r1cs_fold_kernel"),
-    "ntt_stage": ("ntt_stage_kernel",), "msm_accumulate": ("msm_accumulate_kernel",),
+    "ntt_stage": ("ntt_stage_kernel<RadixFr",), "msm_accumulate": ("msm_accumulate_kernel",),
     "msm_reduce": ("msm_reduce_segments_kernel", "msm_reduce_rows_kernel"),
     "ntt_block": ("ntt_block_kernel",),
     "point_add": ("point_sum_kernel",),
@@ -2916,7 +3075,8 @@ KERNEL_FUNCTIONS = {
     "probe_chain": ("probe_chain_kernel",), "field_pow": ("field_pow_kernel",),
     "field_reduce": ("field_reduce_kernel", "field_product_kernel"),
     "fixed_base_msm": ("fixed_base_kernel", "fixed_base_g1_kernel"),
-    "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_stage_n_kernel",),
+    # ntt_stage_n launches the R = 1 kernel of ntt_radix_n: a profile cannot tell them apart
+    "field_vec_n": ("field_vec_n_kernel",), "ntt_stage_n": ("ntt_radix_kernel<RadixN",),
     # K4's templates at the curves' types (csrc/curve_n.cuh EF<G>, EF2<G>),
     # the tree of csrc/msm_kernels_n.cuh
     "msm_accumulate_n": ("msm_accumulate_kernel<EF",),
@@ -2925,6 +3085,7 @@ KERNEL_FUNCTIONS = {
     "field_pow_n": ("field_pow_n_kernel",),
     "field_reduce_n": ("field_reduce_n_kernel", "field_product_n_kernel"),
     "ntt_block_n": ("ntt_block_n_kernel",),
+    "ntt_radix": ("ntt_radix_kernel<RadixFr",), "ntt_radix_n": ("ntt_radix_kernel<RadixN",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -3247,7 +3408,8 @@ def curves_only(dev, rng, card) -> int:
     readings = curves_phase(rep, rng, dev, counts, failures)
     rows = []
     for k in (kernels.FIELD_VEC_N, kernels.MSM_ACCUMULATE_N, kernels.MSM_REDUCE_N, kernels.NTT_N,
-              kernels.FIELD_POW_N, kernels.FIELD_REDUCE_N, kernels.NTT_BLOCK_N):
+              kernels.FIELD_POW_N, kernels.FIELD_REDUCE_N, kernels.NTT_BLOCK_N,
+              kernels.NTT_RADIX_N):
         ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
         rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                      "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
@@ -3258,6 +3420,54 @@ def curves_only(dev, rng, card) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_curves.json"), "w") as fh:
         json.dump({"card": card, "curves": readings, "path_counts": counts, "kernels": rows,
                    "ptxas": ptxas_usage(), "failures": failures}, fh, indent=1)
+    print(json.dumps({"kernels": rows}), flush=True)
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def ntt_only(dev, rng, card) -> int:
+    """--ntt-only: the build's register lines of the NTT kernels, then K3
+    (its register passes and its one-stage entry) against the plain stages
+    and beside K5 at (3, 8, 2^17), K5 against both at (3, 8, 2^21), the
+    threshold sweep, and K14's three routes over the three other Fr
+    (`check_ntt_n`); no fixture. Writes chip_smoke_ntt.json into OUT_DIR."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.ops import ntt
+
+    t0 = time.perf_counter()
+    for name, u in sorted(ptxas_usage().items()):
+        if u.get("source") in ("ntt.cu", "ntt_n.cu", "ntt_block.cu", "ntt_block_n.cu"):
+            log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
+                f"{u.get('stack')} B, spill stores {u.get('spill_stores')} B, loads "
+                f"{u.get('spill_loads')} B")
+    rep, counts, failures = Report(), {}, []
+    warm_card(dev)
+    if not check_ntt(rep, rng, ntt.NTTDomain(17, dev), dev, counts):
+        failures.append("kernel ntt_stage or ntt_radix differs from its plain version")
+    if not check_ntt_block(rep, rng, ntt.NTTDomain(21, dev), dev):
+        failures.append("kernel ntt_block differs from its plain version or from K3")
+    sweep = ntt_threshold_sweep(dev)
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    curves_ok, curves = check_ntt_n(rep, gen, dev, counts)
+    if not curves_ok:
+        failures.append("a curve NTT differs from its plain versions, another route, the DFT "
+                        "or the identity")
+    rows = []
+    for k in (kernels.NTT, kernels.NTT_RADIX, kernels.NTT_BLOCK, kernels.NTT_N,
+              kernels.NTT_RADIX_N, kernels.NTT_BLOCK_N):
+        ran = [(path, c[k.name]) for path, c in counts.items() if c.get(k.name)]
+        rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                     "launches": ran[0][1] if ran else 0, "launched_on": ran[0][0] if ran else None,
+                     "library_ms": None, **rep.rows.get(k.name, {})})
+    log(f"[ntt] the command {time.perf_counter() - t0:.1f} s after the build")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_ntt.json"), "w") as fh:
+        json.dump({"card": card, "threshold_sweep": sweep, "curves": curves, "path_counts": counts,
+                   "kernels": rows, "failures": failures}, fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)
     for f in failures:
         print(f"FAILED: {f}", file=sys.stderr)
@@ -3397,6 +3607,10 @@ def main() -> int:
     ap.add_argument("--precompute-only", action="store_true",
                     help="build, check and time K7 and K11 (G1 and G2) against their plain "
                          "versions with their registers, and stop (usable from an earlier tree)")
+    ap.add_argument("--ntt-only", action="store_true",
+                    help="build, check and time K3 (register passes and one-stage entry), K5 "
+                         "and K14's routes against their plain versions and each other, the "
+                         "threshold sweep, and stop")
     ap.add_argument("--curves-msm-only", action="store_true",
                     help="build, time K13 alone at the six full-width curve MSMs by stage with "
                          "its registers, and stop (usable from an earlier tree)")
@@ -3446,6 +3660,8 @@ def main() -> int:
         return precompute_only(dev, rng, card)
     if args.curves_msm_only:
         return curves_msm_only(dev, rng, card)
+    if args.ntt_only:
+        return ntt_only(dev, rng, card)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
@@ -3504,7 +3720,7 @@ def main() -> int:
     checks = [
         ("field_vec", lambda: check_field_vec(rep, rng, cache.domain.n, dev)),
         ("r1cs_reduce", lambda: check_r1cs(rep, rng, cache, dev)),
-        ("ntt_stage", lambda: check_ntt(rep, rng, cache, dev)),
+        ("ntt_stage or ntt_radix", lambda: check_ntt(rep, rng, cache.domain, dev, path_counts)),
         ("msm g1", lambda: check_msm(rep, rng, cache, dev, False)),
         ("msm g2", lambda: check_msm(rep, rng, cache, dev, True)),
         ("precompute", lambda: check_precompute(rep, rng, (cache.points_a, cache.points_b2),
@@ -3653,8 +3869,13 @@ def main() -> int:
     if cache_big.header.power >= ntt_ops.NTT_BLOCK_MIN_LOG:
         if variants["default (in core, K5)"]["launches"]["ntt_block"] == 0:
             failures.append(f"{tag}: the default route did not launch K5")
-        if variants["NTT forced to K3"]["launches"]["ntt_block"] != 0:
-            failures.append(f"{tag}: the K3-forced route launched K5")
+        k3 = variants["NTT forced to K3"]["launches"]
+        radix_launches = 2 * len(ntt_ops.radix_passes(cache_big.header.power,
+                                                      ntt_ops.NTT_RADIX_LOG[8]))
+        if k3["ntt_block"] != 0 or k3["ntt_radix"] != radix_launches:
+            failures.append(f"{tag}: the K3-forced route launched K5 {k3['ntt_block']} times "
+                            f"and K3's register passes {k3['ntt_radix']} times, not 0 and "
+                            f"{radix_launches}")
     sliced_launches = variants["MSM sliced, max_lanes 2^21"]["launches"]
     slicing = (g1_lanes > (1 << 21)) + (g2_lanes > (1 << 20))  # G2 slices at half the lanes
     if sliced_launches["point_add"] != slicing:

@@ -1,61 +1,26 @@
-// K3: one radix-2 butterfly stage of the batched Fr NTT, in place.
+// K3: the batched BN254 Fr NTT below NTT_BLOCK_MIN_LOG, as passes of r
+// radix-2 stages in registers (ntt_radix.cuh, where the design is), over
+// field.cuh's Fr. Only the C entries live here.
 //
-// Replaces icicle_snark_tpu/ops/ntt.py intt_dif (:180) and ntt_dit (:158),
-// the per-stage reshape + mont_mul/add_mod/sub_mod graphs XLA lowered for the
-// TPU. The port keeps their reorder-free pairing: the inverse transform is
-// Gentleman-Sande (natural in, bit-reversed out, scaled by 1/n in its last
-// stage) and the forward one Cooley-Tukey (bit-reversed in, natural out).
-//
-// x is (B, 8, n) limb-major int32; tw the (8, n) power table of the
-// transform's root, so the stage-m twiddle w_m^j is tw[j * n / m]. One thread
-// per butterfly; the wrapper launches log2(n) stages per transform.
-// Bound: operations (one Montgomery product per butterfly, two in the scaled
-// last inverse stage); each stage also streams the whole batch once.
-#include "field.cuh"
+// Replaces icicle_snark_tpu/ops/ntt.py intt_dif (:180) and ntt_dit (:158).
+#include "ntt_radix.cuh"
 
-__global__ void ntt_stage_kernel(u32* __restrict__ x, const u32* __restrict__ tw,
-                                 const u32* __restrict__ scale, long long batch, long long n,
-                                 long long m, int inverse) {
-  long long half_n = n >> 1;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= batch * half_n) return;
-  long long bb = t / half_n, r = t - bb * half_n;
-  long long h = m >> 1;
-  long long blk = r / h, j = r - blk * h;
-  long long i0 = blk * m + j, i1 = i0 + h;
-  u32* xb = x + bb * 8 * n;
-  u32 u[8], v[8], w[8], a[8], b[8];
-  fload(u, xb, n, i0);
-  fload(v, xb, n, i1);
-  fload(w, tw, n, j * (n / m));
-  if (inverse) {
-    u32 d[8];
-    fadd<Fr>(a, u, v);
-    fsub<Fr>(d, u, v);
-    fmul<Fr>(b, d, w);
-    if (scale) {
-      u32 s[8];
-      fload(s, scale, 1, 0);
-      fmul<Fr>(a, a, s);
-      fmul<Fr>(b, b, s);
-    }
-  } else {
-    u32 vw[8];
-    fmul<Fr>(vw, v, w);
-    fadd<Fr>(a, u, vw);
-    fsub<Fr>(b, u, vw);
-  }
-  fstore(xb, n, i0, a);
-  fstore(xb, n, i1, b);
+// One pass: the stages of spans 2^(low+1) .. 2^(low+r) of every row of x
+// (batch, 8, n) in place, 1 <= r <= 4, with the (8, n) stage-major table
+// stw; scale NULL or one (8, 1) value times every output of an inverse pass.
+extern "C" int snark_ntt_radix(void* x, const void* stw, const void* scale, long long batch,
+                               long long n, int low, int r, int inverse, void* stream) {
+  return ntt_radix_dispatch<RadixFr>(x, stw, scale, batch, n, low, r, inverse,
+                                     (cudaStream_t)stream);
 }
 
+// One stage of span m, in place, over the natural (8, n) power table tw (the
+// stage-m twiddle w_m^j at tw[j n / m]): the template's R = 1 instance; scale
+// multiplies both outputs of an inverse stage.
 extern "C" int snark_ntt_stage(void* x, const void* tw, const void* scale, long long batch,
                                long long n, long long m, int inverse, void* stream) {
-  long long lanes = batch * (n >> 1);
-  if (lanes == 0) return 0;
-  int threads = 256;
-  long long blocks = (lanes + threads - 1) / threads;
-  ntt_stage_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (u32*)x, (const u32*)tw, (const u32*)scale, batch, n, m, inverse);
-  return (int)cudaGetLastError();
+  const int low = radix_stage_low(n, m);
+  if (low < 0) return (int)cudaErrorInvalidValue;
+  return ntt_radix_launch<RadixFr, 1, true>(x, tw, scale, batch, n, low, inverse,
+                                            (cudaStream_t)stream);
 }

@@ -136,8 +136,10 @@ _SIGNATURES = {
     # nnz, n, n_vars, n_prev, n_items, piece, stream
     "snark_r1cs_rows": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _LL, _LL, _LL, _LL, _LL, _I, _VP],
-    # x, tw, scale, batch, n, m, inverse, stream
+    # x, tw (natural), scale, batch, n, m, inverse, stream
     "snark_ntt_stage": [_VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
+    # x, tw (stage-major), scale, batch, n, low, r, inverse, stream
+    "snark_ntt_radix": [_VP, _VP, _VP, _LL, _LL, _I, _I, _I, _VP],
     # g2, affine, out, src, n_src, order, negs, start, len, n_items, stream
     "snark_msm_accumulate": [_I, _I, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP],
     # g2, stage, out, seg_s, seg_t, buckets, windows, groups, half, seg, nt, stream
@@ -173,6 +175,8 @@ _SIGNATURES = {
     "snark_msm_n_occupancy": [_I, _I, _VP],
     # field, x, tw (stage-major), scale, batch, n, m, inverse, stream
     "snark_ntt_stage_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _VP],
+    # field, x, tw (stage-major), scale, batch, n, low, r, inverse, stream
+    "snark_ntt_radix_n": [_I, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _VP],
     # out, x, tlo, thi, batch, n1, n2_loc, d, shard, s_log, tile, stream
     "snark_four_step": [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _I, _VP],
     # field (KERNEL_FIELDS), out, a, exponent (host words), nbits, nb, n, stream
@@ -214,8 +218,14 @@ R1CS = Kernel(
     "icicle_snark_tpu/prover/pipeline.py:55",
 )
 NTT = Kernel(
-    "ntt_stage", "snark_ntt_stage", "icicle_snark_tpu_torch/csrc/ntt.cu",
+    "ntt_stage", "snark_ntt_stage",
+    "icicle_snark_tpu_torch/csrc/ntt.cu; icicle_snark_tpu_torch/csrc/ntt_radix.cuh",
     "icicle_snark_tpu/ops/ntt.py:180",
+)
+NTT_RADIX = Kernel(
+    "ntt_radix", "snark_ntt_radix",
+    "icicle_snark_tpu_torch/csrc/ntt.cu; icicle_snark_tpu_torch/csrc/ntt_radix.cuh",
+    "icicle_snark_tpu/ops/ntt.py:158; icicle_snark_tpu/ops/ntt.py:180",
 )
 MSM_ACCUMULATE = Kernel(
     "msm_accumulate", "snark_msm_accumulate", "icicle_snark_tpu_torch/csrc/msm.cu",
@@ -278,8 +288,14 @@ MSM_REDUCE_N = Kernel(
     "icicle_snark_tpu/curves/device.py:255; icicle_snark_tpu/ops/msm.py:701",
 )
 NTT_N = Kernel(
-    "ntt_stage_n", "snark_ntt_stage_n", "icicle_snark_tpu_torch/csrc/ntt_n.cu",
+    "ntt_stage_n", "snark_ntt_stage_n",
+    "icicle_snark_tpu_torch/csrc/ntt_n.cu; icicle_snark_tpu_torch/csrc/ntt_radix.cuh",
     "icicle_snark_tpu/ops/ntt.py:180",
+)
+NTT_RADIX_N = Kernel(
+    "ntt_radix_n", "snark_ntt_radix_n",
+    "icicle_snark_tpu_torch/csrc/ntt_n.cu; icicle_snark_tpu_torch/csrc/ntt_radix.cuh",
+    "icicle_snark_tpu/ops/ntt.py:158; icicle_snark_tpu/ops/ntt.py:180",
 )
 FIELD_POW_N = Kernel(
     "field_pow_n", "snark_field_pow_n", "icicle_snark_tpu_torch/csrc/field_pow_n.cu",
@@ -305,7 +321,7 @@ ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
        FIELD_POW, FIELD_REDUCE, FIXED_BASE,
        FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP,
-       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N)
+       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N, NTT_RADIX, NTT_RADIX_N)
 
 
 def reset_counts():

@@ -1,6 +1,6 @@
 """Batched radix-2 NTT over BN254 Fr (kernels K3 and K5) and over the scalar
-fields of bls12-377, bls12-381 and bw6-761 (kernel K14: its one-stage
-kernel and its passes).
+fields of bls12-377, bls12-381 and bw6-761 (kernel K14: its register
+passes, K3's template over N words, and its tile passes).
 
 The prove pipeline never needs natural->natural transforms: `intt_dif`
 takes natural-order values to BIT-REVERSED coefficients (Gentleman-Sande,
@@ -9,18 +9,21 @@ scaled by 1/n), the coset key powers are taken in bit-reversed order, and
 as in icicle_snark_tpu/ops/ntt.py. `ntt_natural` wraps them in a
 bit-reversal gather.
 
-Two kernels run the same butterfly network. K3 (`csrc/ntt.cu`) is one
-stage per launch. K5 (`csrc/ntt_block.cu`) runs several consecutive
-stages per launch (a pass) through shared memory and registers; it is the
-large-domain transform, the port's counterpart of
+Two kernels run the same butterfly network. K3 (`csrc/ntt.cu`, the body
+in `csrc/ntt_radix.cuh`) runs a pass of up to NTT_RADIX_LOG consecutive
+stages a launch in registers (`ntt_radix`; `ntt_stage`, one stage over the
+natural power table, is its one-stage entry). K5 (`csrc/ntt_block.cu`)
+runs several consecutive stages per launch (a pass) through shared memory
+and registers; it is the large-domain transform, the port's counterpart of
 icicle_snark_tpu/ops/mxu_ntt.py, and is taken from `NTT_BLOCK_MIN_LOG` up.
 Every stage's outputs are canonical in the plain versions and every pass's
-in K5, so both give the same words. `_inverse_` and `_forward_` hold the
-route and the pass order of both directions. `coset_h` is the prove's whole coset
-evaluation on K5 alone: the last inverse pass multiplies by the coset keys
-(1/n folded in) and the last forward pass writes h = (A B - C) R^2. For
-CPU tensors each wrapper runs its plain version (`ntt_stage_plain`,
-`ntt_block_plain`, `ntt_block_scale_plain`, `ntt_block_h_plain`).
+in K3 and K5, so all give the same words. `_inverse_` and `_forward_` hold
+the route and the pass order of both directions. `coset_h` is the prove's
+whole coset evaluation on K5 alone: the last inverse pass multiplies by
+the coset keys (1/n folded in) and the last forward pass writes
+h = (A B - C) R^2. For CPU tensors each wrapper runs its plain version
+(`ntt_stage_plain`, `ntt_radix_plain`, `ntt_block_plain`,
+`ntt_block_scale_plain`, `ntt_block_h_plain`).
 
 The op surface (`ntt`, `ntt_inplace`, `initialize_domain`,
 `get_root_of_unity`, as in icicle_snark_tpu/ops/ntt.py) runs every
@@ -33,9 +36,10 @@ on K14, with K12 for their products and power tables; K5 and K3 stay
 BN254's. From NTT_BLOCK_MIN_LOG up a transform is K14's passes
 (`csrc/ntt_block_n.cu`, K5's passes at N words, the 1/n or the (words, n)
 scale fused into the low = 0 inverse pass, tiles of NTT_N_TILE_LOG);
-below it, one K14 stage a launch (`csrc/ntt_n.cu`, K3's design over the
-stage-major table), which also stays as the passes' stage-by-stage check.
-The plain versions are `ntt_block_n_plain` and `ntt_stage_n_plain`.
+below it, K3's register passes over N words (`ntt_radix_n`, `csrc/ntt_n.cu`
+on the same template), which also stay as the passes' check, with
+`ntt_stage_n` their one-stage entry. The plain versions are
+`ntt_block_n_plain`, `ntt_radix_n_plain` and `ntt_stage_n_plain`.
 
 Data layout: (B, words, n) int32, Montgomery form (fields/limbs.py): 8
 words for BN254 Fr and the bls12 Fr, 12 for the bw6-761 Fr.
@@ -117,7 +121,7 @@ class NTTDomain:
         self.w = tower[log_n]
         self.tw_fwd = powers_mont(self.w, log_n, device, spec)
         self.tw_inv = powers_mont(pow(self.w, -1, p), log_n, device, spec)
-        # the same twiddles stage by stage, for K5 and K14
+        # the same twiddles stage by stage, for K3, K5 and K14
         self.stw_fwd = stage_major(self.tw_fwd)
         self.stw_inv = stage_major(self.tw_inv)
         self.n_inv_mont = lb.const(pow(self.n, -1, p) * spec.r_mod % p, device,
@@ -183,6 +187,67 @@ def ntt_stage(x: torch.Tensor, tw: torch.Tensor, m: int, inverse: bool,
     )
 
 
+# Stages a launch of the register passes below NTT_BLOCK_MIN_LOG, by the
+# field's words (K3 and ntt_radix_n: at most 4 at 8 words, 3 at 12). On an
+# H100 the BN254 pair at (3, 8, 2^21) took 6.74-6.75 / 5.20-5.25 / 4.98-5.02
+# / 6.10-6.15 ms at R = 1 / 2 / 3 / 4 (K5: 5.15), the bls12 Fr pairs at 2^22
+# 3.59-3.63 at R = 2 and 3.59-3.71 at R = 3, the bw6-761 Fr pair 7.86-7.88 /
+# 7.03-7.07 / 7.75-7.78 at R = 1 / 2 / 3 (chip_smoke.py `radix_sweep`,
+# PERF.md): R = 3 at 8 words, where BN254 gains 4-5 % and the bls12 Fr lose
+# 0-3 %. Patch it to time the others.
+NTT_RADIX_LOG = {8: 3, 12: 2}
+RADIX_MAX = {8: 4, 12: 3}
+
+
+def radix_passes(log_n: int, r: int) -> list:
+    """The register passes of one transform of 2^log_n at r stages a pass,
+    as (low, k) in ascending order of stages: passes of r stages from
+    low = 0 up, then one shorter pass for the rest."""
+    if r < 1:
+        raise ValueError(f"radix_passes: bad radix 2^{r}")
+    return [(low, min(r, log_n - low)) for low in range(0, log_n, r)]
+
+
+def _check_radix(who: str, x, stw, low: int, r: int, inverse: bool, scale, words: int):
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != words or not x.is_contiguous():
+        raise ValueError(f"{who}: want contiguous int32 (B, {words}, n), got {tuple(x.shape)}")
+    n = x.shape[-1]
+    log_n = n.bit_length() - 1
+    if (stw.shape != (words, n) or n != 1 << log_n or not 1 <= r <= RADIX_MAX[words] or low < 0
+            or low + r > log_n):
+        raise ValueError(f"{who}: bad twiddles {tuple(stw.shape)} or pass ({low}, {r}) for n={n}")
+    if scale is not None and (not inverse or scale.shape != (words, 1)):
+        raise ValueError(f"{who}: scale is one ({words}, 1) value for an inverse pass")
+
+
+def ntt_radix_plain(x: torch.Tensor, stw: torch.Tensor, low: int, r: int, inverse: bool,
+                    scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of a K3 pass over (B, 8, n) with the
+    stage-major table: `ntt_radix_n_plain` at BN254 Fr."""
+    return ntt_radix_n_plain(x, stw, low, r, inverse, FR_SPEC, scale)
+
+
+def ntt_radix(x: torch.Tensor, stw: torch.Tensor, low: int, r: int, inverse: bool,
+              scale: torch.Tensor | None = None) -> None:
+    """r butterfly stages (spans 2^(low+1) .. 2^(low+r)) IN PLACE on x
+    (B, 8, n) int32 in one K3 launch, 1 <= r <= 4: descending DIF stages
+    when inverse, else ascending DIT stages, with the STAGE-MAJOR table
+    (`NTTDomain.stw_*`); `scale` (8, 1) multiplies every output of an
+    inverse pass (the 1/n of the low = 0 pass)."""
+    _check_radix("ntt_radix", x, stw, low, r, inverse, scale, NLIMB)
+    if x.device.type == "cpu":
+        x.copy_(ntt_radix_plain(x, stw, low, r, inverse, scale))
+        return
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ntt_radix: unsupported device {x.device}")
+    stw = stw.contiguous()
+    scale = None if scale is None else scale.contiguous()
+    kernels.NTT_RADIX.launch(
+        x.data_ptr(), stw.data_ptr(), None if scale is None else scale.data_ptr(),
+        x.shape[0], x.shape[-1], low, r, int(inverse),
+    )
+
+
 # ---------------------------------------------------------------- K14
 
 def ntt_stage_n_plain(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
@@ -226,6 +291,39 @@ def ntt_stage_n(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
     )
 
 
+def ntt_radix_n_plain(x: torch.Tensor, stw: torch.Tensor, low: int, r: int, inverse: bool,
+                      spec, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of a register pass (K3, and K14's below
+    NTT_BLOCK_MIN_LOG): r calls of `ntt_stage_n_plain` over (B, words, n)
+    in the pass's order (descending when inverse), `scale` (words, 1) given
+    to the last."""
+    stages = list(range(low + r, low, -1) if inverse else range(low + 1, low + r + 1))
+    for s in stages:
+        x = ntt_stage_n_plain(x, stw, 1 << s, inverse, spec, scale if s == stages[-1] else None)
+    return x
+
+
+def ntt_radix_n(x: torch.Tensor, stw: torch.Tensor, low: int, r: int, inverse: bool, spec,
+                scale: torch.Tensor | None = None) -> None:
+    """`ntt_radix` over a non-BN254 Fr, IN PLACE on x (B, words, n) int32,
+    1 <= r <= 4 at 8 words, 3 at 12, with the stage-major table of
+    `NTTDomain.stw_*` and `scale` (words, 1). One launch for CUDA
+    tensors."""
+    _check_radix("ntt_radix_n", x, stw, low, r, inverse, scale, spec.words)
+    if x.device.type == "cpu":
+        x.copy_(ntt_radix_n_plain(x, stw, low, r, inverse, spec, scale))
+        return
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ntt_radix_n: unsupported device {x.device}")
+    _k14_field(spec, "ntt_radix_n")
+    stw = stw.contiguous()
+    scale = None if scale is None else scale.contiguous()
+    kernels.NTT_RADIX_N.launch(
+        spec.field_id, x.data_ptr(), stw.data_ptr(), None if scale is None else scale.data_ptr(),
+        x.shape[0], x.shape[-1], low, r, int(inverse),
+    )
+
+
 # ---------------------------------------------------------------- K5
 
 # Elements of one shared-memory tile (2^10 x 32 bytes = 32 KB, as much again
@@ -234,11 +332,10 @@ def ntt_stage_n(x: torch.Tensor, stw: torch.Tensor, m: int, inverse: bool, spec,
 NTT_TILE_LOG = 10
 NTT_TILE_MIN_COLS_LOG = 5
 # Domains of at least 2^NTT_BLOCK_MIN_LOG go through K5, smaller ones
-# through K3 stage by stage. On an H100 K5 was ahead at every size timed
-# from 2^2 to 2^21 at batch 3 and level with K3 at 2^1, where both make
-# two launches (chip_smoke.py `ntt_threshold_sweep`, PERF.md): below 2^14
-# both are bound by launches and K5 makes 2 where K3 makes 2 log n. So no
-# circuit's prove runs K3 by default; it stays as the stage-by-stage check
+# through K3's register passes. On an H100, at batch 3, K5 was ahead of
+# them at every size timed from 2^3 to 2^17 (fewer launches), level at 2^1
+# and 2^2 and 3 % behind at 2^21 (chip_smoke.py `ntt_threshold_sweep`,
+# PERF.md). So no circuit's prove runs K3 by default; it stays as the check
 # of K5. Raise the constant past the domain to force K3.
 NTT_BLOCK_MIN_LOG = 3
 
@@ -425,60 +522,63 @@ def ntt_block_n(x: torch.Tensor, stw: torch.Tensor, low: int, k: int, tcols_log:
 
 # ---------------------------------------------------------------- transforms
 
+def _radix_pass(y: torch.Tensor, dom: NTTDomain, low: int, r: int, inverse: bool,
+                scale: torch.Tensor | None = None) -> None:
+    """One register pass of the domain's network: K3 (BN254) or its N-word
+    instance (the other Fr)."""
+    stw = dom.stw_inv if inverse else dom.stw_fwd
+    if dom.spec.bn254:
+        ntt_radix(y, stw, low, r, inverse, scale)
+    else:
+        ntt_radix_n(y, stw, low, r, inverse, dom.spec, scale)
+
+
 def _inverse_(y: torch.Tensor, dom: NTTDomain, scale: torch.Tensor) -> None:
     """The inverse network IN PLACE on y (B, words, n), natural in,
     bit-reversed out, each output times `scale`, (words, 1) or (words, n).
     From NTT_BLOCK_MIN_LOG up: K5's passes (BN254) or K14's (the other Fr),
-    the scale fused into the low = 0 pass. Below it, stage by stage on K3
-    or K14's one-stage kernel: a (words, 1) scale fused into the last stage,
-    a (words, n) one a K1 (K12) product after it."""
+    the scale fused into the low = 0 pass. Below it, K3's register passes
+    of NTT_RADIX_LOG stages (`radix_passes`, top down): a (words, 1) scale
+    fused into the low = 0 pass, a (words, n) one a K1 (K12) product after
+    it."""
     spec = dom.spec
     lanes = scale.shape[-1] == 1
-    if not spec.bn254:
-        if dom.log_n >= NTT_BLOCK_MIN_LOG:
+    if dom.log_n >= NTT_BLOCK_MIN_LOG:
+        if spec.bn254:
+            for low, k, tcols in reversed(block_passes(dom.log_n)):
+                ntt_block(y, dom.stw_inv, low, k, tcols, True, scale if low == 0 else None)
+        else:
             for low, k, tcols in reversed(ntt_n_passes(dom.log_n)):
                 ntt_block_n(y, dom.stw_inv, low, k, tcols, True, spec, scale if low == 0 else None)
-            return
-        for s in range(dom.log_n, 0, -1):
-            ntt_stage_n(y, dom.stw_inv, 1 << s, True, spec, scale if lanes and s == 1 else None)
-        if not lanes:
-            y.copy_(lb.mont_mul(y, scale, spec))
         return
-    if dom.log_n >= NTT_BLOCK_MIN_LOG:
-        for low, k, tcols in reversed(block_passes(dom.log_n)):
-            ntt_block(y, dom.stw_inv, low, k, tcols, True, scale if low == 0 else None)
-        return
-    for s in range(dom.log_n, 0, -1):
-        ntt_stage(y, dom.tw_inv, 1 << s, True, scale if lanes and s == 1 else None)
+    for low, r in reversed(radix_passes(dom.log_n, NTT_RADIX_LOG[spec.words])):
+        _radix_pass(y, dom, low, r, True, scale if lanes and low == 0 else None)
     if not lanes:
-        y.copy_(lb.mont_mul(y, scale, FR_SPEC))
+        y.copy_(lb.mont_mul(y, scale, spec))
 
 
 def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None) -> None:
-    """The forward network IN PLACE on y (B, 8, n), bit-reversed in,
-    natural out. With `h_out` (B = 3: A, B, C) it writes
-    h = (A B - C) R^2 there instead, fused into K5's last pass (K3: three
-    K1 launches after the stages), and y is scratch. The other Fr: K14's
-    passes from NTT_BLOCK_MIN_LOG up, else its one-stage kernel; no h."""
-    if not dom.spec.bn254:
-        if h_out is not None:
-            raise ValueError("_forward_: h is the BN254 prove's")
-        if dom.log_n >= NTT_BLOCK_MIN_LOG:
+    """The forward network IN PLACE on y (B, words, n), bit-reversed in,
+    natural out. With `h_out` (BN254, B = 3: A, B, C) it writes
+    h = (A B - C) R^2 there instead, fused into K5's last pass (below
+    NTT_BLOCK_MIN_LOG: three K1 launches after K3's passes), and y is
+    scratch. The other Fr: K14's passes from NTT_BLOCK_MIN_LOG up, else the
+    register passes; no h."""
+    if not dom.spec.bn254 and h_out is not None:
+        raise ValueError("_forward_: h is the BN254 prove's")
+    if dom.log_n >= NTT_BLOCK_MIN_LOG:
+        if not dom.spec.bn254:
             for low, k, tcols in ntt_n_passes(dom.log_n):
                 ntt_block_n(y, dom.stw_fwd, low, k, tcols, False, dom.spec)
             return
-        for s in range(1, dom.log_n + 1):
-            ntt_stage_n(y, dom.stw_fwd, 1 << s, False, dom.spec)
-        return
-    if dom.log_n >= NTT_BLOCK_MIN_LOG:
         passes = block_passes(dom.log_n)
         for i, (low, k, tcols) in enumerate(passes):
             last = h_out is not None and i == len(passes) - 1
             ntt_block(y, dom.stw_fwd, low, k, tcols, False, dom.r2 if last else None,
                       h_out if last else None)
         return
-    for s in range(1, dom.log_n + 1):
-        ntt_stage(y, dom.tw_fwd, 1 << s, False)
+    for low, r in radix_passes(dom.log_n, NTT_RADIX_LOG[dom.spec.words]):
+        _radix_pass(y, dom, low, r, False)
     if h_out is not None:
         h_raw = lb.sub_mod(lb.mont_mul(y[0], y[1], FR_SPEC), y[2], FR_SPEC)
         h_out.copy_(lb.mont_mul(h_raw, dom.r2, FR_SPEC))
@@ -486,8 +586,8 @@ def _forward_(y: torch.Tensor, dom: NTTDomain, h_out: torch.Tensor | None = None
 
 def intt_dif(x: torch.Tensor, dom: NTTDomain) -> torch.Tensor:
     """Inverse NTT of (B, words, n), natural input -> BIT-REVERSED output,
-    times 1/n. From NTT_BLOCK_MIN_LOG up K5 (BN254) or K14's passes, else K3
-    or K14's one-stage kernel."""
+    times 1/n. From NTT_BLOCK_MIN_LOG up K5 (BN254) or K14's passes, else
+    K3's register passes (`ntt_radix`, `ntt_radix_n`)."""
     y = x.clone().contiguous()
     _inverse_(y, dom, dom.n_inv_mont)
     return y
@@ -517,7 +617,7 @@ def coset_h(x: torch.Tensor, dom: NTTDomain, keys_br_scaled: torch.Tensor) -> to
     (8, n) is the coset key powers in bit-reversed order times 1/n
     (ZKeyCache.keys_br_scaled). From NTT_BLOCK_MIN_LOG up: K5 passes only,
     the keys fused into the last inverse pass and h into the last forward
-    pass; below it K3 stages and K1 products."""
+    pass; below it K3's register passes and K1 products."""
     h = torch.empty_like(x[0])
     _inverse_(x, dom, keys_br_scaled)
     _forward_(x, dom, h)

@@ -64,21 +64,20 @@ def small_tile(monkeypatch):
 
 
 def _spied(monkeypatch):
-    """Count the pass and one-stage wrapper calls (the CPU runs their plain
-    versions)."""
-    calls = {"block": 0, "stage": 0}
-    block, stage = ntt.ntt_block_n, ntt.ntt_stage_n
+    """Count the tile pass, register pass and one-stage wrapper calls (the
+    CPU runs their plain versions)."""
+    calls = {"block": 0, "stage": 0, "radix": 0}
+    wrapped = {"block": ntt.ntt_block_n, "stage": ntt.ntt_stage_n, "radix": ntt.ntt_radix_n}
 
-    def spy_block(*a, **kw):
-        calls["block"] += 1
-        return block(*a, **kw)
+    def spy(key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return wrapped[key](*a, **kw)
+        return call
 
-    def spy_stage(*a, **kw):
-        calls["stage"] += 1
-        return stage(*a, **kw)
-
-    monkeypatch.setattr(ntt, "ntt_block_n", spy_block)
-    monkeypatch.setattr(ntt, "ntt_stage_n", spy_stage)
+    for key, name in (("block", "ntt_block_n"), ("stage", "ntt_stage_n"),
+                      ("radix", "ntt_radix_n")):
+        monkeypatch.setattr(ntt, name, spy(key))
     return calls
 
 
@@ -114,23 +113,26 @@ def test_pass_route_equals_jax(name, log_n, small_tile, monkeypatch):
     want = jlb.mont_mul(dif(jx, jdom.tw_inv, one),
                         jnp.asarray(lb.to_jax_limbs(table))[:, None, :], jfr)
     assert torch.equal(y, _from_jax(want))
-    assert calls == {"block": 3 * passes, "stage": 0}
+    assert calls == {"block": 3 * passes, "stage": 0, "radix": 0}
 
 
 @pytest.mark.parametrize("name", CURVES)
 def test_below_block_min_log_runs_stages(name, monkeypatch):
-    """Below NTT_BLOCK_MIN_LOG the transform is K14's one-stage route, and
+    """Below NTT_BLOCK_MIN_LOG the transform is the register passes
+    (`ntt_radix_n`, NTT_RADIX_LOG stages a launch, here 3; no one-stage
+    launch), and
     both routes give the same words (patching the constant past the domain
-    forces the one-stage route, as the chip script does)."""
+    forces the register passes, as the chip script does)."""
     fr = cdev.curve_specs(name)[1]
     dom = ntt.NTTDomain(5, "cpu", fr)
     x = _field(np.random.default_rng(320), fr, (2, dom.n))
     passes_f, passes_i = ntt.ntt_dit(x, dom), ntt.intt_dif(x, dom)
     calls = _spied(monkeypatch)
     monkeypatch.setattr(ntt, "NTT_BLOCK_MIN_LOG", 99)
+    monkeypatch.setitem(ntt.NTT_RADIX_LOG, fr.words, 3)
     assert torch.equal(ntt.ntt_dit(x, dom), passes_f)
     assert torch.equal(ntt.intt_dif(x, dom), passes_i)
-    assert calls == {"block": 0, "stage": 10}
+    assert calls == {"block": 0, "stage": 0, "radix": 4}  # passes (0, 3), (3, 2) each way
 
 
 @pytest.mark.parametrize("tile_log", [1, 2, 3, 4, 10])
