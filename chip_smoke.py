@@ -11,6 +11,8 @@
     python3 chip_smoke.py --precompute-only # K7 and K11 against plain, timed, with registers
     python3 chip_smoke.py --curves-msm-only # K13 alone at the six full-width MSMs, by stage
     python3 chip_smoke.py --ntt-only        # K3's register passes, K5 and K14's routes, the sweeps
+    python3 chip_smoke.py --family-only     # the reference's benchmark family at full size
+    python3 chip_smoke.py --cache-only      # the cold cache at complex-N and complex-M, by phase
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -68,9 +70,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      register-pass launches and no K5 launch; a
      deterministic and a randomized proof verify; the MSMs at c = 12..16;
   8. the probe entry point (K8), every (op, W);
-  9. complex(40, 50): the port's device setup gives the host oracle's zkey
-     byte for byte, and its deterministic proof (through the CLI worker on
-     the card) equals the oracle's byte for byte;
+  9. complex(40, 50) and `poseidon_bits_circuit` (a Poseidon hash of two
+     private inputs bound to 254 bits each by rows whose packing sums sit
+     in A, so K2 folds twice; two public signals): the port's device setup
+     gives the host oracle's zkey byte for byte, the deterministic proof
+     through the CLI worker on the card equals the oracle's byte for byte,
+     and one prove through the API launches K2 once a fold level and once
+     more;
   10. the other curves (bls12-377, bls12-381, bw6-761; `curves_phase`): K12
      (field_vec_n) on the five fields word for word against its plain
      version at 2^16 lanes with 0, 1, p - 1, timed at 2^24; K13 (the MSM
@@ -114,7 +120,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
      torch.distributed group over NCCL at world size 1 with two shards on
      the card and proves complex-M D = 2 the same way. The shards of one
      card run one after another: the times are the sharding's overhead;
-  12. print the kernels line, then the result line.
+  12. the reference's benchmark family (`family_phase`, alone with
+     --family-only): sha256-512, keccak256, rsa, rsa_sha256, anon_aadhaar
+     (1536) and keyless (1024) built by the port's builders on the root
+     bench.py's inputs, each witness checked; the fixture by the device
+     setup (timed by phase, K11 and K7 counted; under
+     <fixture-dir>/family/<name>, reused when present); the cold cache split
+     into parse, upload, plan_sort, key_table and records; the coset
+     evaluation (K2 with its fold levels, K5's passes) word for word against
+     its plain version on the card, its launches counted; a first
+     deterministic prove and three warm randomized ones with phases and
+     the peak device memory, both kinds verified, a changed public signal
+     rejected, the K3-forced proof byte-identical; anon_aadhaar's warm
+     prove profiled;
+  13. print the kernels line, then the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -135,26 +154,16 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# H100 SXM rates for the bounds: 3.35 TB/s HBM3 (NVIDIA data sheet); 32-bit
-# integer multiplies at 64 per SM per clock (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
-# 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
-INT_MULS_PER_S = 64 * 132 * 1.98e9
-MULS_PER_MONT = 264  # 8 CIOS rounds x (16 for a*b_i lo/hi + 1 for m + 16 for m*p)
+# the bounds' rates and per-operation multiply counts, and `bound`: one H100
+# SXM at 700 W (icicle_snark_tpu_torch/profiling.py states their sources)
+from icicle_snark_tpu_torch.profiling import (  # noqa: E402
+    FQ_MULS, INT_MULS_PER_S, MULS_PER_MONT, bound)
+
 MULS_PER_REDC = 136  # a product with standard 1: 8 rounds x (1 for m + 16 for m*p)
-# Fq products per point operation (csrc/curve.cuh; G1's b3 product is adds)
-FQ_MULS = {"g1": {"madd": 11, "add": 12, "dbl": 8}, "g2": {"madd": 39, "add": 42, "dbl": 27}}
 
 
 def log(msg: str):
     print(msg, flush=True)
-
-
-def bound(bytes_moved: float, muls: float) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = muls / INT_MULS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def warm_card(dev, seconds: float = 2.0):
@@ -3116,10 +3125,11 @@ def profile_prove(paths, cm) -> dict:
 
 # ---------------------------------------------------------------- fixtures
 
-def make_fixture(directory: str, n_constraints: int, device, timer=None):
+def make_fixture(directory: str, n_constraints: int, device, timer=None, circuit=None):
     """The complex-N fixture (zkey by the port's device setup, vk,
-    witness), made unless the directory holds it; `timer` (a
-    pipeline.PhaseTimer) takes the setup's phases."""
+    witness), or the fixture of `circuit`, an (R1CS, witness) pair, made
+    unless the directory holds it; `timer` (a pipeline.PhaseTimer) takes
+    the setup's phases. Returns (R1CS, paths)."""
     from icicle_snark_tpu_torch.io.wtns import write_wtns
     from icicle_snark_tpu_torch.setup.fast_setup import groth16_setup_device
     from icicle_snark_tpu_torch.setup.r1cs import complex_circuit, complex_circuit_witness
@@ -3128,19 +3138,20 @@ def make_fixture(directory: str, n_constraints: int, device, timer=None):
     paths = {k: os.path.join(directory, f) for k, f in (
         ("zkey", "circuit_final.zkey"), ("vk", "verification_key.json"),
         ("wtns", "witness.wtns"), ("proof", "proof.json"), ("public", "public.json"))}
-    r1cs = complex_circuit(n_constraints, n_constraints)
+    r1cs, witness = circuit or (complex_circuit(n_constraints, n_constraints), None)
     if not (os.path.exists(paths["zkey"]) and os.path.exists(paths["vk"])
             and os.path.exists(paths["wtns"])):
         # no timer argument unless asked: --bits-only and --r1cs-only run in earlier trees
         groth16_setup_device(r1cs, paths["zkey"], paths["vk"], device=device,
                              **({} if timer is None else {"timer": timer}))
-        write_wtns(paths["wtns"], complex_circuit_witness(r1cs, a=7))
+        write_wtns(paths["wtns"], complex_circuit_witness(r1cs, a=7) if witness is None
+                   else witness)
     return r1cs, paths
 
 
-def drive_setup(tag, directory, n_constraints, dev, counts_log, failures) -> dict:
-    """make_fixture as a driven path: the device setup's phases (s) and
-    launches (K11 for the fixed-base points, K7 for their affine form, K1
+def drive_setup(tag, directory, n_constraints, dev, counts_log, failures, circuit=None) -> dict:
+    """make_fixture (of `circuit` when given) as a driven path: the device
+    setup's phases (s) and launches (K11 for the fixed-base points, K7 for their affine form, K1
     never), g1_points and g2_points split into the device time of their K11
     and K7 calls (CUDA events around each call) and the host rest. When the
     directory holds the fixture already nothing runs."""
@@ -3169,7 +3180,7 @@ def drive_setup(tag, directory, n_constraints, dev, counts_log, failures) -> dic
     with patched((fs, "fixed_base_msm", timed("fixed_base_msm", fs.fixed_base_msm,
                                               lambda a: a[2])),
                  (jc, "to_affine", timed("point_to_affine", jc.to_affine, lambda a: a[0]))):
-        _, paths = make_fixture(directory, n_constraints, dev, timer)
+        _, paths = make_fixture(directory, n_constraints, dev, timer, circuit)
     secs = time.perf_counter() - t0
     split = {}
     if timer.phases:
@@ -3352,6 +3363,297 @@ def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict
     for k, v in out.items():
         log(f"  msm window sums {k}: {v:.2f} ms")
     return out
+
+
+POSEIDON_BITS_INPUTS = (3 ** 150 % (1 << 250), 7 ** 88 % (1 << 247))
+
+
+def check_against_oracle(tag, directory, r1cs, witness, dev, counts_log, min_fold_levels=0):
+    """A small circuit's zkey from the port's device setup against the host
+    oracle's, byte for byte; its deterministic proof through the CLI worker
+    on the card against the oracle's, byte for byte, and verified; then one
+    deterministic prove through the API, a driven path whose K2 launches
+    must show at least `min_fold_levels` fold levels. Returns ok."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.io.wtns import write_wtns
+    from icicle_snark_tpu_torch.prover import api, pipeline
+    from icicle_snark_tpu_torch.refmath import groth16 as oracle
+    from icicle_snark_tpu_torch.setup.fast_setup import groth16_setup_device
+    from icicle_snark_tpu_torch.setup.trusted_setup import groth16_setup
+
+    d = directory
+    os.makedirs(d, exist_ok=True)
+    groth16_setup(r1cs, os.path.join(d, "host.zkey"), os.path.join(d, "vk.json"))
+    groth16_setup_device(r1cs, os.path.join(d, "dev.zkey"), device=dev)
+    same_zkey = filecmp.cmp(os.path.join(d, "host.zkey"), os.path.join(d, "dev.zkey"),
+                            shallow=False)
+    write_wtns(os.path.join(d, "w.wtns"), witness)
+    cmd = (f"prove --witness {d}/w.wtns --zkey {d}/dev.zkey --proof {d}/proof.json "
+           f"--public {d}/public.json --device CUDA --deterministic 1\n"
+           f"verify --proof {d}/proof.json --public {d}/public.json --vk {d}/vk.json\nexit\n")
+    cli = subprocess.run([sys.executable, "-m", "icicle_snark_tpu_torch"], input=cmd, text=True,
+                         capture_output=True, cwd=HERE, timeout=300)
+    with open(os.path.join(d, "proof.json")) as fh:
+        proof = json.load(fh)
+    with open(os.path.join(d, "public.json")) as fh:
+        public = json.load(fh)
+    same_proof = (proof, public) == oracle.prove(os.path.join(d, "host.zkey"),
+                                                 os.path.join(d, "w.wtns"), deterministic=True)
+    cm = api.CacheManager("cuda")
+    levels = len(pipeline.r1cs_fold_plan(cm.get(os.path.join(d, "dev.zkey")).plan,
+                                         pipeline.R1CS_PIECE)[1])
+    kernels.reset_counts()
+    api.groth16_prove(os.path.join(d, "w.wtns"), os.path.join(d, "dev.zkey"),
+                      os.path.join(d, "api_proof.json"), os.path.join(d, "api_public.json"), cm,
+                      deterministic=True)
+    counts_log[f"small {tag}"] = kernels.counts()
+    folds_ok = levels >= min_fold_levels and counts_log[f"small {tag}"]["r1cs_rows"] == 1 + levels
+    log(f"[small] {tag}: {r1cs.n_constraints} constraints, n_public {r1cs.n_public}; device "
+        f"zkey == host zkey: {same_zkey}; CLI deterministic proof == oracle: {same_proof}; K2 "
+        f"fold levels {levels} (r1cs_rows launches {counts_log[f'small {tag}']['r1cs_rows']}); "
+        f"CLI said {cli.stdout.split()!r}")
+    return (same_zkey and same_proof and folds_ok and "OK!" in cli.stdout
+            and not cli.returncode)
+
+
+# ---------------------------------------------------------------- phase 12
+
+def family_builders() -> dict:
+    """The reference's benchmark family (BASELINE.md, the family table):
+    name -> a call that builds (R1CS, witness) with the port's builders at
+    the published size, on the inputs the root bench.py gives them."""
+    from icicle_snark_tpu_torch.setup import (aadhaar_circuit, keccak_circuit, keyless_circuit,
+                                              rsa_circuit, sha256_circuit)
+
+    def sha256():
+        msg = bytes(range(64))  # bits MSB first
+        return sha256_circuit.sha256_512_circuit(
+            [(msg[i // 8] >> (7 - i % 8)) & 1 for i in range(512)])
+
+    def keccak256():
+        msg = bytes(range(32))  # bits LSB first
+        return keccak_circuit.keccak256_circuit(
+            [(msg[i // 8] >> (i % 8)) & 1 for i in range(256)])
+
+    def anon_aadhaar():
+        kwargs, _ = aadhaar_circuit.aadhaar_test_vector(max_data_length=1536)
+        return aadhaar_circuit.aadhaar_verifier_circuit(**kwargs)
+
+    def keyless():
+        kwargs, _ = keyless_circuit.keyless_test_vector(max_jwt_len=1024)
+        return keyless_circuit.keyless_circuit(**kwargs)
+
+    return {
+        "sha256": sha256, "keccak256": keccak256,
+        "rsa": lambda: rsa_circuit.rsa_verify_circuit(*rsa_circuit.rsa_test_vector()),
+        "rsa_sha256": lambda: rsa_circuit.rsa_sha256_verify_circuit(
+            *rsa_circuit.rsa_sha256_test_vector()),
+        "anon_aadhaar": anon_aadhaar, "keyless": keyless,
+    }
+
+
+def family_coset(cache, paths, dev, tag, counts_log) -> tuple:
+    """construct_r1cs on the fixture's witness (K2 with its fold levels,
+    then K5's passes with the keys and h fused in) against its plain
+    version on the card, word for word; its launches a driven path of their
+    own (K2 once a fold level and once more, K5 twice a pass, K1 never);
+    timed beside K2 alone. Returns (ok, readings)."""
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile
+    from icicle_snark_tpu_torch.ops import ntt
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    plan, dom = cache.plan, cache.domain
+    w = lb.words_to_limbs(WtnsFile(paths["wtns"]).witness_limbs(), dev)
+    long_slots, levels = pipeline.r1cs_fold_plan(plan, pipeline.R1CS_PIECE)
+    kernels.reset_counts()
+    got = pipeline.construct_r1cs(w, cache)
+    counts = kernels.counts()
+    counts_log[f"{tag} construct_r1cs"] = counts
+    want_counts = (1 + len(levels), 2 * len(ntt.block_passes(dom.log_n)), 0)
+    launches_ok = (counts["r1cs_rows"], counts["ntt_block"], counts["field_vec"]) == want_counts
+    want, plain_ms = timed_once(lambda: ntt.coset_h_plain(
+        pipeline.r1cs_rows_plain(w, plan), dom, cache.keys_br_scaled))
+    err = max_word_err(got, want)
+    terms = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    n = plan.num_slots // 2
+    row = {"max_word_err": err, "launches_ok": launches_ok, "fold_levels": len(levels),
+           "fold_pieces": [int(lo.numel()) for lo, _ in levels],
+           "long_slots_a": int((terms[:n] > pipeline.R1CS_PIECE).sum()),
+           "long_slots_b": int((terms[n:] > pipeline.R1CS_PIECE).sum()),
+           "widest_a": int(terms[:n].max()), "widest_b": int(terms[n:].max()),
+           "nnz": int(plan.coefs.shape[-1]), "plain_ms": plain_ms,
+           "ms": cuda_time(lambda: pipeline.construct_r1cs(w, cache), 10),
+           "r1cs_rows_ms": cuda_time(lambda: pipeline.r1cs_rows(w, plan), 10)}
+    log(f"  coset evaluation (K2 + K5) {tag}: " + json.dumps(row) + "; launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    if not launches_ok:
+        log(f"  construct_r1cs launched {counts}: want r1cs_rows {want_counts[0]}, ntt_block "
+            f"{want_counts[1]}, field_vec 0")
+    return err == 0 and launches_ok, row
+
+
+def family_circuit(name, build, fixture_dir, dev, counts_log, failures, profile=False) -> dict:
+    """One circuit of the family through the port: built and its witness
+    checked, the fixture made by the device setup (`drive_setup`, reused
+    when present), the cold cache split by phase, the coset evaluation
+    against its plain version, a first deterministic prove and three warm
+    randomized ones (`drive_proves`, both kinds verified, the launches of
+    one warm prove) with the peak device memory, a changed public signal
+    rejected, the K3-forced deterministic proof byte-identical, and with
+    `profile` one profiled warm prove."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.ops import ntt as ntt_ops
+    from icicle_snark_tpu_torch.prover import api, pipeline
+    from icicle_snark_tpu_torch.refmath.field import R_MOD
+
+    tag = f"family {name}"
+    out = {}
+    t0 = time.perf_counter()
+    r1cs, witness = build()
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not r1cs.check_witness(witness):
+        failures.append(f"{tag}: the builder's witness does not satisfy its R1CS")
+    out["check_witness_s"] = time.perf_counter() - t0
+    out["constraints"] = r1cs.n_constraints
+    setup = drive_setup(tag, os.path.join(fixture_dir, "family", name), None, dev, counts_log,
+                        failures, circuit=(r1cs, witness))
+    del r1cs, witness
+    paths = setup["paths"]
+    out.update(setup_s=setup["s"], setup_phases=setup["phases"], setup_split=setup["split"])
+    cm = api.CacheManager(dev)
+    timer = pipeline.PhaseTimer(dev)
+    t0 = time.perf_counter()
+    cache = cm.get(paths["zkey"], timer=timer)
+    torch.cuda.synchronize()
+    out["cold_cache_s"], out["cold_cache_phases"] = time.perf_counter() - t0, timer.phases
+    hdr = cache.header
+    out["shape"] = {"n_vars": hdr.n_vars, "n_public": hdr.n_public, "domain_log": hdr.power,
+                    "g1_lanes": sum(cache.g1_sizes), "g2_lanes": cache.points_b2[0].shape[-1],
+                    "c": cache.msm_c, "c2": cache.msm_c2}
+    log(f"[{tag}] built in {out['build_s']:.1f} s ({out['constraints']} constraints, witness "
+        f"checked in {out['check_witness_s']:.1f} s); cold cache {out['cold_cache_s']:.3f} s, "
+        "phases " + json.dumps({k: round(v, 4) for k, v in timer.phases.items()}) + "; "
+        + json.dumps(out["shape"]))
+    ok, out["coset"] = family_coset(cache, paths, dev, tag, counts_log)
+    if not ok:
+        failures.append(f"{tag}: the coset evaluation differs from its plain version or "
+                        "launched other kernels than K2's levels and K5's passes")
+    torch.cuda.reset_peak_memory_stats()
+    first, warm, launches, det, phases = drive_proves(tag, paths, cm, dev, failures, counts_log)
+    out.update(first_prove_s=first, warm_prove_s=warm, warm_phases=phases, launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    public = json.loads(det[1])
+    if len(public) != hdr.n_public:
+        failures.append(f"{tag}: public.json holds {len(public)} signals, not {hdr.n_public}")
+    # the deterministic proof against a public.json with one entry changed
+    bad = {k: os.path.join(os.path.dirname(paths["zkey"]), f) for k, f in (
+        ("proof", "proof_det.json"), ("public", "public_changed.json"))}
+    with open(bad["proof"], "wb") as fh:
+        fh.write(det[0])
+    with open(bad["public"], "w") as fh:
+        json.dump([str((int(public[0]) + 1) % R_MOD)] + public[1:], fh)
+    out["changed_public_rejected"] = not api.groth16_verify(bad["proof"], bad["public"],
+                                                            paths["vk"])
+    if not out["changed_public_rejected"]:
+        failures.append(f"{tag}: a proof verified against a changed public signal")
+    with patched((ntt_ops, "NTT_BLOCK_MIN_LOG", 99)):
+        kernels.reset_counts()
+        secs, proof, pub = _prove_bytes(api, paths, cm, deterministic=True)
+        counts_log[f"{tag} NTT forced to K3"] = kernels.counts()
+    k3 = counts_log[f"{tag} NTT forced to K3"]
+    out["k3_forced"] = {"s": secs, "same": (proof, pub) == det, "ntt_radix": k3["ntt_radix"],
+                        "ntt_block": k3["ntt_block"]}
+    if not out["k3_forced"]["same"] or k3["ntt_block"] or not k3["ntt_radix"]:
+        failures.append(f"{tag}: the K3-forced proof differs from the default route's, or that "
+                        f"route launched K5 ({k3['ntt_block']}) or no register pass")
+    if profile:
+        out["profile"] = profile_prove(paths, cm)
+        log(f"[{tag}] profile of one warm prove: " + json.dumps(out["profile"]))
+    log(f"[{tag}] peak device memory {out['peak_memory_gb']:.2f} GB; changed public signal "
+        f"rejected: {out['changed_public_rejected']}; K3-forced proof byte-identical: "
+        f"{out['k3_forced']['same']} ({out['k3_forced']['s']:.3f} s)")
+    del cm, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(fixture_dir, dev, counts_log, failures) -> dict:
+    """Every circuit of the family through `family_circuit`; anon_aadhaar's
+    warm prove profiled."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, build in family_builders().items():
+        t1 = time.perf_counter()
+        out[name] = family_circuit(name, build, fixture_dir, dev, counts_log, failures,
+                                   profile=name == "anon_aadhaar")
+        out[name]["phase_s"] = time.perf_counter() - t1
+        log(f"[family] {name} in {out[name]['phase_s']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[family] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+def cache_only(args, dev) -> int:
+    """--cache-only: the complex-N and complex-M fixtures (made unless
+    --fixture-dir holds them), then each one's cold cache
+    (`load_zkey_cache`, host clock ending in a synchronise) three times,
+    split by phase where this tree's load_zkey_cache takes a timer. Uses
+    entry points every slice has had, so a copy of this script (with
+    icicle_snark_tpu_torch/profiling.py) in an unpacked earlier tree
+    measures that tree."""
+    import inspect
+
+    import torch
+
+    from icicle_snark_tpu_torch.prover import cache as cache_mod
+    from icicle_snark_tpu_torch.prover import pipeline
+
+    split = "timer" in inspect.signature(cache_mod.load_zkey_cache).parameters
+    for n in (args.constraints, args.large_constraints):
+        _, paths = make_fixture(os.path.join(args.fixture_dir, f"torch_complex_{n}"), n, dev)
+        rows = []
+        for _ in range(3):
+            timer = pipeline.PhaseTimer(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = cache_mod.load_zkey_cache(paths["zkey"], dev,
+                                              **({"timer": timer} if split else {}))
+            torch.cuda.synchronize()
+            rows.append({"s": time.perf_counter() - t0,
+                         "phases": {k: round(v, 4) for k, v in timer.phases.items()}})
+            del cache
+            torch.cuda.empty_cache()
+        log(f"[cache] complex-{n} cold cache, three loads: " + json.dumps(rows))
+    return 0
+
+
+def family_only(args, dev, card) -> int:
+    """--family-only: the small gadget circuit of phase 9 against the
+    oracle, then `family_phase`; the readings written to
+    chiprun_out/chip_smoke_family.json."""
+    from icicle_snark_tpu_torch.setup.r1cs import poseidon_bits_circuit
+
+    failures, counts = [], {}
+    t0 = time.perf_counter()
+    if not check_against_oracle("poseidon_bits", os.path.join(OUT_DIR, "smoke_poseidon_bits"),
+                                *poseidon_bits_circuit(*POSEIDON_BITS_INPUTS), dev, counts,
+                                min_fold_levels=2):
+        failures.append("poseidon_bits: the device zkey or the CLI's deterministic proof "
+                        "differs from the oracle's, or K2 did not fold")
+    readings = family_phase(args.fixture_dir, dev, counts, failures)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_family.json"), "w") as fh:
+        json.dump({"card": card, "family": readings, "path_counts": counts,
+                   "failures": failures}, fh, indent=1)
+    log(f"[family] command {time.perf_counter() - t0:.1f} s after the build")
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 def multichip_only(args, dev, rng, card) -> int:
@@ -3614,6 +3916,14 @@ def main() -> int:
     ap.add_argument("--curves-msm-only", action="store_true",
                     help="build, time K13 alone at the six full-width curve MSMs by stage with "
                          "its registers, and stop (usable from an earlier tree)")
+    ap.add_argument("--family-only", action="store_true",
+                    help="build, then build, set up and prove the reference's benchmark family "
+                         "(sha256, keccak256, rsa, rsa_sha256, anon_aadhaar, keyless) at full "
+                         "size, and stop")
+    ap.add_argument("--cache-only", action="store_true",
+                    help="build, time the cold cache of complex-N and complex-M three times each "
+                         "(by phase where the tree's load_zkey_cache takes a timer), and stop "
+                         "(usable from an earlier tree)")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -3628,11 +3938,8 @@ def main() -> int:
     from icicle_snark_tpu_torch.ops import msm as msm_ops
     from icicle_snark_tpu_torch.ops import ntt as ntt_ops
     from icicle_snark_tpu_torch.prover import api
-    from icicle_snark_tpu_torch.refmath import groth16 as oracle
     from icicle_snark_tpu_torch.setup.r1cs import complex_circuit, complex_circuit_witness
-    from icicle_snark_tpu_torch.setup.trusted_setup import groth16_setup
     from icicle_snark_tpu_torch.tools import throughput_probe
-    from icicle_snark_tpu_torch.io.wtns import write_wtns
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -3662,6 +3969,10 @@ def main() -> int:
         return curves_msm_only(dev, rng, card)
     if args.ntt_only:
         return ntt_only(dev, rng, card)
+    if args.family_only:
+        return family_only(args, dev, card)
+    if args.cache_only:
+        return cache_only(args, dev)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
@@ -3905,34 +4216,18 @@ def main() -> int:
     log("[probe] multiply rate: " + json.dumps(mul_rate) + f"; the bounds assume "
         f"{INT_MULS_PER_S / 1e12:.2f} T multiplies/s")
 
-    # ---- 9. small fixture against the oracle
-    small = os.path.join(OUT_DIR, "smoke_complex_40_50")
-    os.makedirs(small, exist_ok=True)
-    r1cs = complex_circuit(40, 50)
-    from icicle_snark_tpu_torch.setup.fast_setup import groth16_setup_device
+    # ---- 9. small circuits against the oracle
+    from icicle_snark_tpu_torch.setup.r1cs import poseidon_bits_circuit
 
-    groth16_setup(r1cs, os.path.join(small, "host.zkey"), os.path.join(small, "vk.json"))
-    groth16_setup_device(r1cs, os.path.join(small, "dev.zkey"), device=dev)
-    same_zkey = filecmp.cmp(os.path.join(small, "host.zkey"), os.path.join(small, "dev.zkey"),
-                            shallow=False)
-    write_wtns(os.path.join(small, "w.wtns"), complex_circuit_witness(r1cs, a=7))
-    cmd = (f"prove --witness {small}/w.wtns --zkey {small}/dev.zkey --proof {small}/proof.json "
-           f"--public {small}/public.json --device CUDA --deterministic 1\n"
-           f"verify --proof {small}/proof.json --public {small}/public.json --vk {small}/vk.json\nexit\n")
-    cli = subprocess.run([sys.executable, "-m", "icicle_snark_tpu_torch"], input=cmd, text=True,
-                         capture_output=True, cwd=HERE, timeout=300)
-    with open(os.path.join(small, "proof.json")) as fh:
-        proof = json.load(fh)
-    with open(os.path.join(small, "public.json")) as fh:
-        public = json.load(fh)
-    same_proof = (proof, public) == oracle.prove(os.path.join(small, "host.zkey"),
-                                                 os.path.join(small, "w.wtns"), deterministic=True)
-    log(f"[small] device zkey == host zkey: {same_zkey}; CLI deterministic proof == oracle: "
-        f"{same_proof}; CLI said {cli.stdout.split()!r}")
-    if not same_zkey:
-        failures.append("device setup zkey differs from the host oracle's")
-    if not same_proof or "OK!" not in cli.stdout or cli.returncode:
-        failures.append("small deterministic proof differs from the oracle's")
+    r1cs = complex_circuit(40, 50)
+    for tag, name, circuit, folds in (
+            ("complex(40, 50)", "complex_40_50", (r1cs, complex_circuit_witness(r1cs, a=7)), 0),
+            ("poseidon_bits", "poseidon_bits", poseidon_bits_circuit(*POSEIDON_BITS_INPUTS), 2)):
+        # the CLI worker splits its command lines on whitespace: no space in the directory
+        if not check_against_oracle(tag, os.path.join(OUT_DIR, f"smoke_{name}"), *circuit, dev,
+                                    path_counts, min_fold_levels=folds):
+            failures.append(f"{tag}: the device zkey or the CLI's deterministic proof differs "
+                            "from the oracle's, or K2 did not fold")
 
     # ---- 10. the other curves
     curves = curves_phase(rep, rng, dev, path_counts, failures)
@@ -3940,8 +4235,13 @@ def main() -> int:
 
     # ---- 11. the sharded prove on meshes of this card
     multi = multichip_phase(rep, rng, dev, big, cache_big, paths, path_counts, failures)
+    del cm_big, cache_big
+    torch.cuda.empty_cache()
 
-    # ---- 12. report: a kernel's launches are those of the first driven path
+    # ---- 12. the reference's benchmark family at full size
+    family = family_phase(args.fixture_dir, dev, path_counts, failures)
+
+    # ---- 13. report: a kernel's launches are those of the first driven path
     # that ran it (each path was driven with the counts set to 0 before it)
     rows = []
     for k in kernels.ALL:
@@ -3984,6 +4284,7 @@ def main() -> int:
                   "bits_prove": bits_big, "msm_bits": bits_timing, "k4_sweep": sweep_k4,
                   "ntt_block": rep.rows.get(kernels.NTT_BLOCK.name)},
         "probe": probe_rows, "multiply_rate": mul_rate, "curves": curves, "multichip": multi,
+        "family": family,
         "path_counts": path_counts,
         "failures": failures, "total_s": time.perf_counter() - t_all, "kernels": rows,
     }

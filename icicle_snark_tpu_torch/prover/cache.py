@@ -74,14 +74,20 @@ class ZKeyCache:
     # the sharded prove's per-shard state by mesh (parallel/prove_step.py
     # pad_cache_for_mesh), built at its first prove on that mesh
     mesh_parts: dict = field(init=False, default_factory=dict, repr=False, compare=False)
+    # a pipeline.PhaseTimer that takes the phases key_table and records, or None
+    timer: InitVar = None
 
-    def __post_init__(self, keys):
+    def __post_init__(self, keys, timer):
         dom = self.domain
         self.keys_br_scaled = lb.mont_mul(keys[:, dom.bitrev].contiguous(), dom.n_inv_mont, FR_SPEC)
+        if timer is not None:
+            timer.mark("key_table")
         groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
         self.g1_records = msm_ops.point_records(
             tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2)))
         self.b2_records = msm_ops.point_records(self.points_b2)
+        if timer is not None:
+            timer.mark("records")
         self.g1_sizes = [g[0].shape[-1] // self.msm_pre for g in groups]
         self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), 4, self.msm_pre)
         self.msm_c2 = self.msm_c2 or msm_ops.choose_c(
@@ -119,10 +125,14 @@ def _g2(words, dev) -> tuple:
     return (x, y)
 
 
-def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None) -> ZKeyCache:
+def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None, timer=None) -> ZKeyCache:
     """Parse the zkey and build the device cache. `msm_plan` is
     ((c1, f1), (c2, f2)), window size and precompute factor of the grouped
-    G1 MSM and of the G2 MSM; None takes `msm_ops.choose_c_pre`."""
+    G1 MSM and of the G2 MSM; None takes `msm_ops.choose_c_pre`. `timer`
+    (a pipeline.PhaseTimer) takes the phases parse (the header and section 4
+    decoded), upload (the point sections read from the memory-mapped file,
+    transposed and copied to the device, with any precompute), plan_sort,
+    key_table (the coset keys and the domain's twiddle tables) and records."""
     dev = require_device(device)
     zk = ZKeyFile(zkey_path)
     hdr = zk.header
@@ -133,29 +143,38 @@ def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None) -> ZKeyCache:
                     msm_ops.choose_c_pre(hdr.n_vars, groups=1, g2=True))
     (c1, f1), (c2, f2) = msm_plan
 
+    def mark(name):
+        if timer is not None:
+            timer.mark(name)
+
     def pre1(points):
         return msm_ops.precompute_bases(points, jc.G1, c1, f1)
 
     m_arr, c_arr, s_arr, coef_words = zk.coefficients()
+    mark("parse")
     slots = (torch.from_numpy(m_arr.astype("int64")) * n
              + torch.from_numpy(c_arr.astype("int64"))).to(dev)
-    plan = build_r1cs_plan(
-        slots, torch.from_numpy(s_arr.astype("int64")).to(dev),
-        words_to_limbs(coef_words, dev), n,
-    )
+    witness_idx = torch.from_numpy(s_arr.astype("int64")).to(dev)
+    coefs = words_to_limbs(coef_words, dev)
+    points = {k: pre1(_g1(getattr(zk, f"points_{k}")(), dev)) for k in ("a", "b1", "c", "h")}
+    points_b2 = msm_ops.precompute_bases(_g2(zk.points_b2(), dev), jc.G2, c2, f2)
+    mark("upload")
+    plan = build_r1cs_plan(slots, witness_idx, coefs, n)
+    mark("plan_sort")
     # coset generator g with g^n = -1 (reference cache.rs:168)
     keys = powers_mont(W[hdr.power + 1], hdr.power, dev)
     return ZKeyCache(
         header=hdr,
         plan=plan,
-        points_a=pre1(_g1(zk.points_a(), dev)),
-        points_b1=pre1(_g1(zk.points_b1(), dev)),
-        points_b2=msm_ops.precompute_bases(_g2(zk.points_b2(), dev), jc.G2, c2, f2),
-        points_c=pre1(_g1(zk.points_c(), dev)),
-        points_h=pre1(_g1(zk.points_h(), dev)),
+        points_a=points["a"],
+        points_b1=points["b1"],
+        points_b2=points_b2,
+        points_c=points["c"],
+        points_h=points["h"],
         keys=keys,
         domain=NTTDomain(hdr.power, dev),
         msm_c=c1, msm_c2=c2, msm_pre=f1, msm_pre2=f2,
+        timer=timer,
     )
 
 
@@ -171,7 +190,9 @@ class CacheManager:
     def contains(self, zkey_path: str) -> bool:
         return zkey_path in self._caches
 
-    def get(self, zkey_path: str) -> ZKeyCache:
+    def get(self, zkey_path: str, timer=None) -> ZKeyCache:
+        """The cache of `zkey_path`, loaded at first use (`timer` takes that
+        load's phases, as in load_zkey_cache)."""
         if zkey_path not in self._caches:
-            self._caches[zkey_path] = load_zkey_cache(zkey_path, self.device, self.msm_plan)
+            self._caches[zkey_path] = load_zkey_cache(zkey_path, self.device, self.msm_plan, timer)
         return self._caches[zkey_path]

@@ -15,6 +15,7 @@ import torch
 
 from ..fields.limbs import from_jax_limbs
 from ..ops.ntt import NTTDomain
+from ..runtime import require_device
 from .cache import ZKeyCache, build_r1cs_plan
 
 
@@ -34,17 +35,19 @@ def _g2(pt, dev) -> tuple:
 def cache_from_jax_arrays(header, *, coefs, witness_idx, segments, level2,
                           points_a, points_b1, points_b2, points_c, points_h,
                           keys, msm_c: int = 0, msm_pre: int = 1, msm_c2: int = 0,
-                          msm_pre2: int = 1, device="cpu") -> ZKeyCache:
+                          msm_pre2: int = 1, device="cuda") -> ZKeyCache:
     """header: the zkey header (either package's ZKeyHeader; fields are
     read by name). coefs (16, nnz); witness_idx, segments (nnz,); level2
     None or (segments2, num_segments2); points as JAX affine (x, y), with
     msm_pre / msm_pre2 interleaved precompute copies per base (the two
     packages share that layout, so only the limbs are repacked); keys
     (16, n) natural-order coset powers. msm_c / msm_c2 are the window
-    sizes the copies were shifted for: required when a factor is above 1."""
+    sizes the copies were shifted for: required when a factor is above 1.
+    The cache lives on the card unless `device` asks for the CPU; without a
+    card that default raises."""
     if (msm_pre > 1 and not msm_c) or (msm_pre2 > 1 and not msm_c2):
         raise ValueError("a cache with precomputed bases needs the window size they were built for")
-    dev = torch.device(device)
+    dev = require_device(device)
     n = header.domain_size
     seg = np.asarray(segments).astype(np.int64)
     slots = np.asarray(level2[0]).astype(np.int64)[seg] if level2 is not None else seg

@@ -106,3 +106,27 @@ def multiplier_circuit() -> R1CS:
 
 def multiplier_witness(a: int, b: int) -> list:
     return [1, a * b % R_MOD, a % R_MOD, b % R_MOD]
+
+
+def poseidon_bits_circuit(x: int, y: int) -> tuple:
+    """A small circuit on the family's gadgets: public 1 = Poseidon(x, y)
+    and 2 = x + y; x and y private, each bound to 254 booleanity-checked
+    bits by one row whose packing sum sits in A, (sum_i 2^i b_i) * 1 = x
+    (Num2Bits puts it in C, which K2 never evaluates). So A has slots of
+    254 terms, which K2 sums over fold levels. Returns (R1CS, witness)."""
+    from .poseidon import poseidon_gadget
+    from .sha256_circuit import Builder
+
+    assert 0 <= x < R_MOD and 0 <= y < R_MOD
+    bld = Builder(n_public=2)
+    xs, ys = bld.alloc(x), bld.alloc(y)
+    for sig, v in ((xs, x), (ys, y)):
+        bits = [bld.bool_sig((v >> i) & 1) for i in range(254)]
+        bld.constrain({b: 1 << i for i, b in enumerate(bits)}, {0: 1}, {sig: 1})
+    lc, digest = poseidon_gadget(bld, [({xs: 1}, x), ({ys: 1}, y)])
+    bld.values[1], bld.values[2] = digest, (x + y) % R_MOD
+    bld.constrain(lc, {0: 1}, {1: 1})
+    bld.constrain({xs: 1, ys: 1}, {0: 1}, {2: 1})
+    r1cs = R1CS(n_vars=len(bld.values), n_public=2)
+    r1cs.constraints = bld.constraints
+    return r1cs, bld.values

@@ -141,7 +141,7 @@ def test_two_level_jax_plan_through_convert(small_zkey, monkeypatch):
         points_b2=tuple(np.asarray(a) for a in jc.points_b2),
         points_c=tuple(np.asarray(a) for a in jc.points_c),
         points_h=tuple(np.asarray(a) for a in jc.points_h),
-        keys=np.asarray(jc.keys), msm_c=jc.msm_c, msm_c2=jc.msm_c2)
+        keys=np.asarray(jc.keys), msm_c=jc.msm_c, msm_c2=jc.msm_c2, device="cpu")
     own = load_zkey_cache(zkey_path, "cpu")
     assert torch.equal(cache.keys_br_scaled, own.keys_br_scaled)
     n_inv = pow(cache.header.domain_size, -1, R_MOD)

@@ -57,7 +57,7 @@ def _port_cache_from_jax(jc):
         points_c=tuple(np.asarray(c) for c in jc.points_c),
         points_h=tuple(np.asarray(c) for c in jc.points_h),
         keys=np.asarray(jc.keys), msm_c=jc.msm_c, msm_pre=jc.msm_pre,
-        msm_c2=jc.msm_c2, msm_pre2=jc.msm_pre2,
+        msm_c2=jc.msm_c2, msm_pre2=jc.msm_pre2, device="cpu",
     )
 
 

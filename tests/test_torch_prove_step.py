@@ -156,7 +156,8 @@ def _precomputed(jc, factor: int):
         points_b2=tuple(np.asarray(c) for c in jc.points_b2),
         points_c=tuple(np.asarray(c) for c in jc.points_c),
         points_h=tuple(np.asarray(c) for c in jc.points_h),
-        keys=np.asarray(jc.keys), msm_c=C, msm_pre=factor, msm_c2=C, msm_pre2=factor)
+        keys=np.asarray(jc.keys), msm_c=C, msm_pre=factor, msm_c2=C, msm_pre2=factor,
+        device="cpu")
     return jc, cache
 
 
