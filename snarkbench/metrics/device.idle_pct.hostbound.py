@@ -1,0 +1,8 @@
+"""`device.idle_pct` in the cells whose end-to-end reading is device_ms_per_proof:
+the same reading (metrics/device.idle_pct.py) under a name of its own."""
+
+
+def read(run):
+    from snarkbench.harness import metric_reader
+
+    return metric_reader("device.idle_pct", run.data)(run)

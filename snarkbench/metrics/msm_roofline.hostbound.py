@@ -1,0 +1,8 @@
+"""`msm_roofline` in the cells whose end-to-end reading is device_ms_per_proof:
+the same reading (metrics/msm_roofline.py) under a name of its own."""
+
+
+def read(run):
+    from snarkbench.harness import metric_reader
+
+    return metric_reader("msm_roofline", run.data)(run)
