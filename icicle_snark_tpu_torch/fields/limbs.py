@@ -106,10 +106,16 @@ def ints_to_words(vals, words: int = NLIMB) -> np.ndarray:
     return np.frombuffer(raw, dtype="<u4").reshape(len(vals), words)
 
 
+def words_to_host_limbs(words: np.ndarray) -> torch.Tensor:
+    """(n, words) uint32 words -> (words, n) int32 limb tensor on the host
+    (a transposed copy; reading a memory-mapped `words` happens here)."""
+    w = np.array(np.asarray(words, dtype=np.uint32).T, order="C").view(np.int32)
+    return torch.from_numpy(w)
+
+
 def words_to_limbs(words: np.ndarray, device="cpu") -> torch.Tensor:
     """(n, words) uint32 words -> (words, n) int32 limb tensor on `device`."""
-    w = np.array(np.asarray(words, dtype=np.uint32).T, order="C").view(np.int32)
-    return torch.from_numpy(w).to(device)
+    return words_to_host_limbs(words).to(device)
 
 
 def ints_to_limbs(vals, device="cpu", words: int = NLIMB) -> torch.Tensor:

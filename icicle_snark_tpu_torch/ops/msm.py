@@ -53,7 +53,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from . import point_programs as pprog
 from ..curve import jcurve as jc
 from ..errors import InvalidArgument
@@ -723,10 +723,13 @@ def sort_windows(scalars: torch.Tensor, groups_of, c: int, precompute: int = 1):
 
 def _window_sums(scalars, groups_of, records, c: int, precompute: int, group=None):
     groups = groups_of[1] if isinstance(groups_of, tuple) else len(groups_of)
-    order, negs, ends = sort_windows(scalars, groups_of, c, precompute)
+    with trace.span("msm.sort"):
+        order, negs, ends = sort_windows(scalars, groups_of, c, precompute)
     half = 1 << (c - 1)
-    buckets = msm_accumulate(records, order, negs, ends, groups, half, group)
-    return msm_reduce(buckets, order.shape[0], groups, half, group)
+    with trace.span("msm.accumulate"):
+        buckets = msm_accumulate(records, order, negs, ends, groups, half, group)
+    with trace.span("msm.reduce"):
+        return msm_reduce(buckets, order.shape[0], groups, half, group)
 
 
 def msm_window_sums(scalars: torch.Tensor, group_sizes, records, c: int, precompute: int = 1,

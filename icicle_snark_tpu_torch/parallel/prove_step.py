@@ -42,6 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import trace
 from ..fields import limbs as lb
 from ..fields.limbs import FR_SPEC, NLIMB
 from ..ops import msm as msm_ops
@@ -218,7 +219,7 @@ def run_sharded_prove(mesh, cache, witness: torch.Tensor, c: int | None = None,
     `witness`: (8, n_vars) standard-form limbs (unpadded); c and c2 as
     `window_sizes` settles them; `timer` (a pipeline.PhaseTimer) takes
     each phase's time."""
-    mark = timer.mark if timer is not None else (lambda name: None)
+    mark = (timer or trace.NULL).mark
     d, hdr = mesh.size, cache.header
     parts = pad_cache_for_mesh(cache, mesh)
     max_lanes = max_lanes or msm_ops.MSM_MAX_LANES
@@ -241,8 +242,7 @@ def prove_multichip(mesh, wtns_path: str, cache, deterministic: bool = False, rn
     Horner, randomization and serialization on the host. Bit-exact with
     the single-device prove at any mesh size. Returns (proof_dict,
     public_signals) in every process."""
-    device = mesh.local_devices[0]
-    timer = timer or pipeline.PhaseTimer(device)
+    timer = timer or trace.NULL
     hdr = cache.header
     wtns, witness = pipeline.read_witness(wtns_path, hdr, cache.keys_br_scaled.device)
     timer.mark("witness_ingest")

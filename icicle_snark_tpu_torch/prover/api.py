@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 import time
 
+from .. import trace
 from ..refmath import groth16 as refproto
 from . import pipeline
 from .cache import CacheManager, ZKeyCache, load_zkey_cache  # noqa: F401
@@ -32,20 +33,24 @@ def groth16_prove(
 ) -> float:
     """Prove and write snarkjs-format outputs; returns the prove's seconds
     (the reference prints `proof took:`, src/lib.rs:227-244). A given
-    cache_manager fixes the device."""
-    cache_manager = cache_manager or CacheManager(device)
-    cache = cache_manager.get(zkey_path)
+    cache_manager fixes the device. A given `timer` (pipeline.PhaseTimer)
+    is active for the whole call, under its root span `prove`."""
+    with trace.activate(timer):
+        cache_manager = cache_manager or CacheManager(device)
+        with trace.span("api.lookup", host=True):
+            cache = cache_manager.get(zkey_path)
 
-    start = time.perf_counter()
-    proof, public = pipeline.prove(
-        witness_path, cache, deterministic=deterministic, timer=timer)
-    elapsed = time.perf_counter() - start
+        start = time.perf_counter()
+        proof, public = pipeline.prove(
+            witness_path, cache, deterministic=deterministic, timer=timer)
+        elapsed = time.perf_counter() - start
 
-    with open(proof_path, "w") as fh:
-        json.dump(proof, fh, indent=1)
-    with open(public_path, "w") as fh:
-        json.dump(public, fh, indent=1)
-    return elapsed
+        with trace.span("api.write", host=True):
+            with open(proof_path, "w") as fh:
+                json.dump(proof, fh, indent=1)
+            with open(public_path, "w") as fh:
+                json.dump(public, fh, indent=1)
+        return elapsed
 
 
 def groth16_verify(proof_path: str, public_path: str, vk_path: str) -> bool:

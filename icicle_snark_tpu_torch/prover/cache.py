@@ -34,6 +34,7 @@ from ..ops import msm as msm_ops
 from ..ops.ntt import NTTDomain, powers_mont
 from ..refmath.field import W
 from ..runtime import require_device
+from ..trace import NULL
 
 
 @dataclass
@@ -80,14 +81,13 @@ class ZKeyCache:
     def __post_init__(self, keys, timer):
         dom = self.domain
         self.keys_br_scaled = lb.mont_mul(keys[:, dom.bitrev].contiguous(), dom.n_inv_mont, FR_SPEC)
-        if timer is not None:
-            timer.mark("key_table")
+        timer = timer or NULL
+        timer.mark("key_table")
         groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
         self.g1_records = msm_ops.point_records(
             tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2)))
         self.b2_records = msm_ops.point_records(self.points_b2)
-        if timer is not None:
-            timer.mark("records")
+        timer.mark("records")
         self.g1_sizes = [g[0].shape[-1] // self.msm_pre for g in groups]
         self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), 4, self.msm_pre)
         self.msm_c2 = self.msm_c2 or msm_ops.choose_c(
@@ -143,9 +143,7 @@ def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None, timer=None) ->
                     msm_ops.choose_c_pre(hdr.n_vars, groups=1, g2=True))
     (c1, f1), (c2, f2) = msm_plan
 
-    def mark(name):
-        if timer is not None:
-            timer.mark(name)
+    mark = (timer or NULL).mark
 
     def pre1(points):
         return msm_ops.precompute_bases(points, jc.G1, c1, f1)

@@ -38,11 +38,9 @@ twiddle tables (604 MB): about 1.1 GB of an 80 GB card.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..fields import limbs as lb
 from ..fields.limbs import FR_SPEC, MASK16, NLIMB
 from ..io.wtns import WtnsFile
@@ -51,6 +49,7 @@ from ..ops import ntt as ntt_ops
 from ..refmath import curve as cv
 from ..refmath.field import R_MOD
 from ..refmath.groth16 import serialize_proof
+from ..trace import PhaseTimer
 from .cache import R1CSPlan, ZKeyCache
 
 
@@ -189,61 +188,66 @@ def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: Z
     # past the cap on point lanes the MSM runs in slices (G2: half the cap,
     # its points are twice the bytes)
     cap, cap2 = msm_ops.MSM_MAX_LANES, msm_ops.MSM_MAX_LANES // 2
-    if scalars.shape[-1] * pre > cap:
-        ws1 = msm_ops.msm_windows_sliced(scalars, cache.g1_sizes, cache.g1_records, c, cap, pre)
-    else:
-        ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_records, c, pre)
+    with trace.span("msm.g1"):
+        if scalars.shape[-1] * pre > cap:
+            ws1 = msm_ops.msm_windows_sliced(scalars, cache.g1_sizes, cache.g1_records, c, cap,
+                                             pre)
+        else:
+            ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_records, c, pre)
     n2 = witness.shape[-1]
-    if n2 * pre2 > cap2:
-        ws2 = msm_ops.msm_windows_sliced(witness, [n2], cache.b2_records, c2, cap2, pre2)
-    else:
-        ws2 = msm_ops.msm_window_sums(witness, [n2], cache.b2_records, c2, pre2)
-    ws1_np, ws2_np = ws1.cpu().numpy(), ws2.cpu().numpy()
-    pi_a, pi_b1, pi_c, pi_h = (
-        msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1_np, g), c)
-        for g in range(4)
-    )
-    pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws2_np, 0), c2, g2=True)
+    with trace.span("msm.g2"):
+        if n2 * pre2 > cap2:
+            ws2 = msm_ops.msm_windows_sliced(witness, [n2], cache.b2_records, c2, cap2, pre2)
+        else:
+            ws2 = msm_ops.msm_window_sums(witness, [n2], cache.b2_records, c2, pre2)
+    with trace.span("msm.to_host"):
+        ws1_np, ws2_np = ws1.cpu().numpy(), ws2.cpu().numpy()
+    with trace.span("msm.combine", host=True):
+        pi_a, pi_b1, pi_c, pi_h = (
+            msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1_np, g), c)
+            for g in range(4)
+        )
+        pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws2_np, 0), c2, g2=True)
     return pi_a, pi_b1, pi_b, pi_c, pi_h
-
-
-class PhaseTimer:
-    """Per-phase wall times of a prove. On CUDA each mark synchronises the
-    device first, so a phase's time includes its kernels."""
-
-    def __init__(self, device=None):
-        self.sync = (torch.cuda.synchronize
-                     if device is not None and torch.device(device).type == "cuda" else None)
-        self.phases = {}
-        self._t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.sync is not None:
-            self.sync()
-        now = time.perf_counter()
-        self.phases[name] = self.phases.get(name, 0.0) + (now - self._t)
-        self._t = now
 
 
 def read_witness(wtns_path: str, hdr, device):
     """The witness file checked against the proving key's header: returns
     (WtnsFile, (8, n_vars) standard-form limbs on `device`)."""
-    wtns = WtnsFile(wtns_path)
-    if wtns.header.q != hdr.r:
-        raise ValueError("witness curve does not match proving key")
-    if wtns.header.n_witness != hdr.n_vars:
-        raise ValueError(
-            f"invalid witness length: circuit {hdr.n_vars}, witness {wtns.header.n_witness}"
-        )
-    return wtns, lb.words_to_limbs(wtns.witness_limbs(), device)
+    with trace.span("ingest.open", host=True):
+        wtns = WtnsFile(wtns_path)
+        if wtns.header.q != hdr.r:
+            raise ValueError("witness curve does not match proving key")
+        if wtns.header.n_witness != hdr.n_vars:
+            raise ValueError(
+                f"invalid witness length: circuit {hdr.n_vars}, witness {wtns.header.n_witness}"
+            )
+    with trace.span("ingest.transpose", host=True):
+        limbs = lb.words_to_host_limbs(wtns.witness_limbs())
+    with trace.span("ingest.copy"):
+        return wtns, limbs.to(device)
 
 
-def assemble_proof(hdr, wtns: WtnsFile, commitments, deterministic: bool, rng,
-                   timer: PhaseTimer):
+def assemble_proof(hdr, wtns: WtnsFile, commitments, deterministic: bool, rng, timer):
     """Randomization and assembly on the host (proof_helper.rs:274-295):
     the five MSM results (pi_a, pi_b1, pi_b, pi_c, pi_h) as host projective
-    points -> (proof_dict, public_signals); `timer` takes the phases
-    randomize_assemble and serialize."""
+    points -> (proof_dict, public_signals); `timer` (a PhaseTimer, or
+    trace.NULL) takes the phases randomize_assemble and serialize."""
+    with trace.span("assemble.randomize", host=True):
+        proof = _randomize(hdr, commitments, deterministic, rng)
+    timer.mark("randomize_assemble")
+
+    with trace.span("assemble.public", host=True):
+        public_signals = [str(v) for v in wtns.witness_ints(1, hdr.n_public)]
+    with trace.span("assemble.serialize", host=True):
+        proof = serialize_proof(*proof)
+    timer.mark("serialize")
+    return proof, public_signals
+
+
+def _randomize(hdr, commitments, deterministic: bool, rng):
+    """(pi_a, pi_b, pi_c) randomized with r and s (r = s = 1 when
+    deterministic), as host projective points."""
     pi_a, pi_b1, pi_b, pi_c, pi_h = commitments
     alpha1 = cv.g1_from_affine(hdr.vk_alpha_1)
     beta1 = cv.g1_from_affine(hdr.vk_beta_1)
@@ -266,25 +270,25 @@ def assemble_proof(hdr, wtns: WtnsFile, commitments, deterministic: bool, rng,
     pi_c = cv.g1_add(pi_c, cv.g1_mul(pi_a, s))
     pi_c = cv.g1_add(pi_c, cv.g1_mul(pi_b1, r))
     pi_c = cv.g1_add(pi_c, cv.g1_neg(cv.g1_mul(delta1, r * s % R_MOD)))
-    timer.mark("randomize_assemble")
-
-    public_signals = [str(v) for v in wtns.witness_ints(1, hdr.n_public)]
-    timer.mark("serialize")
-    return serialize_proof(pi_a, pi_b, pi_c), public_signals
+    return pi_a, pi_b, pi_c
 
 
 def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=None,
           timer: PhaseTimer | None = None):
     """Full prove from a witness file against a warm cache; returns
     (proof_dict, public_signals). Randomization and assembly run on the
-    host (proof_helper.rs:274-295)."""
+    host (proof_helper.rs:274-295). A given `timer` takes the phases and,
+    active for the call, its spans and counters (trace.py); without one
+    the prove records nothing and never waits for the device to mark."""
     device = cache.keys_br_scaled.device
-    timer = timer or PhaseTimer(device)
-    wtns, witness = read_witness(wtns_path, cache.header, device)  # (8, n_vars) standard
-    timer.mark("witness_ingest")
+    timer = timer or trace.NULL
+    with trace.activate(timer):
+        wtns, witness = read_witness(wtns_path, cache.header, device)  # (8, n_vars) standard
+        timer.mark("witness_ingest")
 
-    h_scalars = construct_r1cs(witness, cache)
-    timer.mark("r1cs_ntt")
-    commitments = groth16_commitments(witness, h_scalars, cache)
-    timer.mark("msm")
-    return assemble_proof(cache.header, wtns, commitments, deterministic, rng, timer)
+        with trace.span("r1cs_ntt"):
+            h_scalars = construct_r1cs(witness, cache)
+        timer.mark("r1cs_ntt")
+        commitments = groth16_commitments(witness, h_scalars, cache)
+        timer.mark("msm")
+        return assemble_proof(cache.header, wtns, commitments, deterministic, rng, timer)

@@ -26,10 +26,10 @@ from .. import kernels
 from ..curve import jcurve as jc
 from ..fields import limbs as lb
 from ..ops.msm import point_records
-from ..prover.pipeline import PhaseTimer
 from ..refmath import curve as cv
 from ..refmath.field import fq_to_mont
 from ..runtime import require_device
+from ..trace import NULL, PhaseTimer
 from .r1cs import R1CS
 from .trusted_setup import FixedBase, SetupScalars, ToxicWaste, _fixed_bases, write_zkey
 
@@ -139,7 +139,7 @@ def groth16_setup_device(r1cs: R1CS, zkey_path: str, vk_path: str | None = None,
     pipeline.PhaseTimer) takes the phases scalars, tables, g1_points,
     g2_points and write."""
     dev = require_device(device)
-    timer = timer or PhaseTimer(None)
+    timer = timer or NULL
     waste = ToxicWaste(seed)
     scal = SetupScalars(r1cs, waste)
     timer.mark("scalars")

@@ -1,0 +1,8 @@
+"""`host.idle_ms` in the cells whose end-to-end reading is device_ms_per_proof:
+the same reading (metrics/host.idle_ms.py) under a name of its own."""
+
+
+def read(run):
+    from snarkbench.harness import metric_reader
+
+    return metric_reader("host.idle_ms", run.data)(run)
