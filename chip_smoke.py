@@ -13,6 +13,7 @@
     python3 chip_smoke.py --ntt-only        # K3's register passes, K5 and K14's routes, the sweeps
     python3 chip_smoke.py --family-only     # the reference's benchmark family at full size
     python3 chip_smoke.py --cache-only      # the cold cache at complex-N and complex-M, by phase
+    python3 chip_smoke.py --ingest-only     # K18 against plain, timed; the witness ingest A/B
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -29,7 +30,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
      K5 on the same pair (G2 on a pair of threads a lane, with
      its registers), K4 at every lane of both MSMs; K5, K6
      and K4 once more at the large circuit's shapes in phase 7; K9-K11 in
-     phase 6; K8 at the probe's);
+     phase 6; K8 at the probe's; K18 at 2^20 and 1 600 003 rows);
   4. the coset evaluation (K2 rows, then K5's passes with the keys and h
      fused in) against its plain version word for word, on the fixture's
      and on a bit-valued witness, timed, its launches counted (K2 once, K5
@@ -1566,6 +1567,124 @@ def check_probe(rep, rng, dev, depth: int = 4096):
     return ok
 
 
+WITNESS_ROWS = (1, 31, (1 << 16) + 3, 1 << 20, 1600003)
+
+
+def check_witness_limbs(rep, rng, dev, timed=(1 << 20, 1600003)):
+    """K18: the (n, 8) -> (8, n) turn against its plain version word for
+    word at WITNESS_ROWS, timed at `timed` rows (CUDA events; the plain
+    version on the host clock, reported at the last of WITNESS_ROWS)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    ok, ms = True, {}
+    for n in WITNESS_ROWS:
+        words = torch.from_numpy(rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32))
+        t0 = time.perf_counter()
+        want = lb.words_to_device_limbs(words)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        w = words.to(dev)
+        err = max_word_err(lb.words_to_device_limbs(w).cpu(), want)
+        ok &= err == 0
+        if n in timed:
+            ms[n] = cuda_time(lambda w=w: lb.words_to_device_limbs(w), 50)
+            bms, by = bound(64 * n, 0)
+            log(f"  witness_limbs {n} rows: max word err {err}; {ms[n]:.4f} ms (bound {bms:.4f}, "
+                f"{by}); plain {plain_ms:.2f} ms on the host")
+        else:
+            log(f"  witness_limbs {n} rows: max word err {err}")
+    n = max(timed)
+    bms, by = bound(64 * n, 0)
+    rep.add(kernels.WITNESS_LIMBS.name, equal_to_plain=ok, max_abs_err=0.0 if ok else 1.0,
+            ms=ms[n], ms_by_rows=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            timed=f"(n, 8) -> (8, n) int32 at {sorted(ms)} rows (the plain version on the host)")
+    return ok
+
+
+def write_witness_words(path: str, n: int, seed: int) -> str:
+    """A .wtns file of n random values below 2^254 (not reduced: the ingest
+    moves words), written as bytes."""
+    from icicle_snark_tpu_torch.io.binfile import BinWriter
+    from icicle_snark_tpu_torch.refmath.field import R_MOD, int_to_le
+
+    words = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    words[:, 7] &= (1 << 30) - 1
+    w = BinWriter("wtns", version=2)
+    w.begin_section(1)
+    w.write(int(32).to_bytes(4, "little") + int_to_le(R_MOD, 32) + int(n).to_bytes(4, "little"))
+    w.end_section()
+    w.begin_section(2)
+    w.write(words.astype("<u4").tobytes())
+    w.end_section()
+    w.save(path)
+    return path
+
+
+# (chunk bytes, reads in flight) of the ingest's sweep
+INGEST_ROUTES = ((4 << 20, 1), (1 << 20, 4), (2 << 20, 4), (4 << 20, 4), (8 << 20, 4),
+                 (4 << 20, 2), (4 << 20, 8))
+
+
+def ingest_ab(directory: str, dev, n: int = 1600003, reps: int = 8) -> dict:
+    """The witness ingest at n rows from a warm file cache, host clock to a
+    synchronised card: the memory-mapped section turned on the host and
+    copied from pageable memory (the route before K18), against
+    `pipeline.read_witness` at each chunk size and number of reads in
+    flight of INGEST_ROUTES, in turns; each route's limbs equal. Also the
+    time each route takes to return."""
+    import statistics
+    from types import SimpleNamespace
+
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.io.wtns import WtnsFile
+    from icicle_snark_tpu_torch.prover import pipeline
+    from icicle_snark_tpu_torch.refmath.field import R_MOD
+
+    os.makedirs(directory, exist_ok=True)
+    paths = [write_witness_words(os.path.join(directory, f"ingest_{k}.wtns"), n, k)
+             for k in range(2)]
+    hdr = SimpleNamespace(r=R_MOD, n_vars=n)
+
+    def host_route(p):
+        return lb.words_to_host_limbs(WtnsFile(p).witness_limbs()).to(dev)
+
+    def chunked(chunk, readers):
+        def run(p):
+            with patched((pipeline, "INGEST_CHUNK", chunk), (pipeline, "INGEST_READERS", readers)):
+                return pipeline.read_witness(p, hdr, dev)[1]
+        return run
+
+    routes = {"host turn + pageable copy": host_route,
+              **{f"chunks of {c / 2**20:g} MB, {r} in flight": chunked(c, r)
+                 for c, r in INGEST_ROUTES}}
+    times = {name: [] for name in routes}
+    returned = {name: [] for name in routes}
+    want = [host_route(p).cpu() for p in paths]
+    same = True
+    for rep_i in range(reps):
+        for name, fn in (routes.items() if rep_i % 2 == 0 else reversed(routes.items())):
+            p = paths[rep_i % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(p)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            times[name].append((t2 - t0) * 1e3)
+            returned[name].append((t1 - t0) * 1e3)
+            same &= torch.equal(out.cpu(), want[rep_i % 2])
+    out = {"rows": n, "bytes": 32 * n, "reps": reps, "same": bool(same),
+           "ms": {k: statistics.median(v) for k, v in times.items()},
+           "ms_all": times, "returned_ms": {k: statistics.median(v) for k, v in returned.items()}}
+    log("[ingest] " + json.dumps({k: out[k] for k in ("rows", "same", "ms", "returned_ms")}))
+    return out
+
+
 # ---------------------------------------------------------------- the op surface, K9-K11
 
 def random_scalars(rng, count: int, bits: int = 254):
@@ -3095,6 +3214,7 @@ KERNEL_FUNCTIONS = {
     "field_reduce_n": ("field_reduce_n_kernel", "field_product_n_kernel"),
     "ntt_block_n": ("ntt_block_n_kernel",),
     "ntt_radix": ("ntt_radix_kernel<RadixFr",), "ntt_radix_n": ("ntt_radix_kernel<RadixN",),
+    "witness_limbs": ("witness_limbs_kernel",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -3881,6 +4001,36 @@ def precompute_only(dev, rng, card, lanes: int = 100003) -> int:
     return 1 if failures else 0
 
 
+def ingest_only(args, dev, rng, card) -> int:
+    """--ingest-only: K18's registers, K18 against its plain version and
+    timed (`check_witness_limbs`), then the witness ingest's routes in turns
+    at complex-1600k's 1 600 003 rows (`ingest_ab`); no fixture. Writes
+    chip_smoke_ingest.json into OUT_DIR."""
+    from icicle_snark_tpu_torch import kernels
+
+    usage = {name: u for name, u in ptxas_usage().items() if u.get("source") == "witness_limbs.cu"}
+    for name, u in usage.items():
+        log(f"[build] witness_limbs.cu {name}: {u.get('registers')} registers, stack "
+            f"{u.get('stack')} B, spill stores {u.get('spill_stores')} B")
+    rep, failures = Report(), []
+    warm_card(dev)
+    if not check_witness_limbs(rep, rng, dev):
+        failures.append("kernel witness_limbs differs from its plain version")
+    ab = ingest_ab(os.path.join(args.fixture_dir, "ingest"), dev)
+    if not ab["same"]:
+        failures.append("an ingest route gave other limbs")
+    row = {"name": kernels.WITNESS_LIMBS.name, "source": kernels.WITNESS_LIMBS.source,
+           "replaces": kernels.WITNESS_LIMBS.replaces, "usage": usage,
+           **rep.rows.get(kernels.WITNESS_LIMBS.name, {})}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_ingest.json"), "w") as fh:
+        json.dump({"card": card, "kernel": row, "ingest": ab, "failures": failures}, fh, indent=1)
+    print(json.dumps({"kernel": row}), flush=True)
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--constraints", type=int, default=100000)
@@ -3924,6 +4074,10 @@ def main() -> int:
                     help="build, time the cold cache of complex-N and complex-M three times each "
                          "(by phase where the tree's load_zkey_cache takes a timer), and stop "
                          "(usable from an earlier tree)")
+    ap.add_argument("--ingest-only", action="store_true",
+                    help="build, check and time K18 against its plain version with its "
+                         "registers, time the witness ingest's routes in turns at 1 600 003 "
+                         "rows, and stop")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -3973,6 +4127,8 @@ def main() -> int:
         return family_only(args, dev, card)
     if args.cache_only:
         return cache_only(args, dev)
+    if args.ingest_only:
+        return ingest_only(args, dev, rng, card)
     if args.ops_only:
         for name, u in sorted(ptxas_usage().items()):
             log(f"[build] {u.get('source')} {name}: {u.get('registers')} registers, stack "
@@ -4037,6 +4193,7 @@ def main() -> int:
         ("precompute", lambda: check_precompute(rep, rng, (cache.points_a, cache.points_b2),
                                                 dev)),
         ("probe_chain", lambda: check_probe(rep, rng, dev)),
+        ("witness_limbs", lambda: check_witness_limbs(rep, rng, dev)),
     ]
     for name, fn in checks:
         t1 = time.perf_counter()

@@ -18,7 +18,9 @@ for the other curves' fields, for CUDA tensors, and run the plain version
 `field_op_plain` for CPU tensors only; `mont_pow_const` (with `mont_inv`
 and `batch_inv`) launches `csrc/field_pow.cu` (K9) for a BN254 spec and
 `csrc/field_pow_n.cu` (K16) for the others, its plain version
-`field_pow_plain`. The plain version works on
+`field_pow_plain`; `words_to_device_limbs` turns a witness's uploaded
+(n, 8) words with `csrc/witness_limbs.cu` (K18), its plain version
+`words_to_host_limbs`. The plain version of the field ops works on
 16-bit limbs held in int64 (torch on the CPU has no uint32 add or shift),
 and gives the kernels' canonical results exactly.
 """
@@ -111,6 +113,26 @@ def words_to_host_limbs(words: np.ndarray) -> torch.Tensor:
     (a transposed copy; reading a memory-mapped `words` happens here)."""
     w = np.array(np.asarray(words, dtype=np.uint32).T, order="C").view(np.int32)
     return torch.from_numpy(w)
+
+
+def words_to_device_limbs(words: torch.Tensor) -> torch.Tensor:
+    """(n, 8) int32 words -> (8, n) int32 limbs on the words' device (the
+    JAX package's u32x8_to_limbs_device): one K18 launch for CUDA words,
+    the plain version (`words_to_host_limbs`) for CPU words only."""
+    if words.dtype != torch.int32 or words.dim() != 2 or words.shape[1] != NLIMB:
+        raise ValueError(
+            f"words_to_device_limbs: want int32 (n, {NLIMB}), got {words.dtype} "
+            f"{tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return words_to_host_limbs(words.numpy().view(np.uint32))
+    if words.device.type != "cuda":
+        raise RuntimeError(f"words_to_device_limbs: unsupported device {words.device}")
+    words = words.contiguous()
+    if words.data_ptr() % 16:
+        raise ValueError("words_to_device_limbs: the words must start on a 16-byte boundary")
+    out = torch.empty((NLIMB, words.shape[0]), dtype=torch.int32, device=words.device)
+    kernels.WITNESS_LIMBS.launch(out.data_ptr(), words.data_ptr(), words.shape[0])
+    return out
 
 
 def words_to_limbs(words: np.ndarray, device="cpu") -> torch.Tensor:

@@ -59,14 +59,18 @@ class BinFile:
             self.sections.setdefault(ht, []).append(Section(pos, hl))
             pos += hl
 
-    def section(self, section_id: int) -> np.ndarray:
-        """Zero-copy uint8 view of a unique section's payload."""
+    def section_range(self, section_id: int) -> Section:
+        """A unique section's offset and size in the file."""
         secs = self.sections.get(section_id)
         if not secs:
             raise KeyError(f"{self.path}: missing section {section_id}")
         if len(secs) > 1:
             raise ValueError(f"{self.path}: duplicated section {section_id}")
-        s = secs[0]
+        return secs[0]
+
+    def section(self, section_id: int) -> np.ndarray:
+        """Zero-copy uint8 view of a unique section's payload."""
+        s = self.section_range(section_id)
         return self.data[s.pos : s.pos + s.size]
 
     def section_u32(self, section_id: int) -> np.ndarray:

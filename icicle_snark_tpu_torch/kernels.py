@@ -186,6 +186,8 @@ _SIGNATURES = {
     # field (KERNEL_FIELDS), x, tw (stage-major), mul, mul_lanes, batch, n, log_n, low, k,
     # tcols_log, inverse, stream
     "snark_ntt_block_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _I, _VP],
+    # out (8, n), words (n, 8), n, stream
+    "snark_witness_limbs": [_VP, _VP, _LL, _VP],
 }
 
 
@@ -317,11 +319,16 @@ FOUR_STEP = Kernel(
     "icicle_snark_tpu_torch/csrc/four_step.cu; icicle_snark_tpu_torch/csrc/four_step.cuh",
     "icicle_snark_tpu/parallel/ntt_dist.py:70",
 )
+# The witness ingest (prover/pipeline.py read_witness)
+WITNESS_LIMBS = Kernel(
+    "witness_limbs", "snark_witness_limbs", "icicle_snark_tpu_torch/csrc/witness_limbs.cu",
+    "icicle_snark_tpu/fields/limbs.py:153; icicle_snark_tpu/prover/pipeline.py:371",
+)
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
        FIELD_POW, FIELD_REDUCE, FIXED_BASE,
        FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP,
-       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N, NTT_RADIX, NTT_RADIX_N)
+       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N, NTT_RADIX, NTT_RADIX_N, WITNESS_LIMBS)
 
 
 def reset_counts():

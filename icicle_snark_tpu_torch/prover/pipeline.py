@@ -1,4 +1,4 @@
-"""The Groth16 prove pipeline on the GPU (kernels K1-K7).
+"""The Groth16 prove pipeline on the GPU (kernels K1-K7, K18).
 
 Mirrors the reference's value flow (src/proof_helper.rs:31-317) and the
 JAX package's pipeline (icicle_snark_tpu/prover/pipeline.py), so proofs are
@@ -6,7 +6,9 @@ byte-identical:
 
   stage                here                                      kernel
   -------------------  ----------------------------------------  ------
-  witness ingest       (n, 8) words -> (8, n) limbs (transpose)  -
+  witness ingest       the file's (n, 8) words read in chunks,   K18
+                       a few at once, each copied up as it
+                       lands; turned to (8, n) limbs on device
   R1CS evaluation      per row: sum_j coef*w mod r, REDC, and    K2
                        C = A*B, into the (3, 8, n) batch
   coset evaluation     bit-reversed INTT, key powers, NTT        K5 (K3, K1
@@ -211,9 +213,37 @@ def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: Z
     return pi_a, pi_b1, pi_b, pi_c, pi_h
 
 
+# Bytes of the witness section read (and, on the card, copied) at a time,
+# and the reads in flight. Read at every call (tests patch them).
+INGEST_CHUNK = 4 << 20
+INGEST_READERS = 4
+
+
+def upload_words(wtns: WtnsFile, device) -> torch.Tensor:
+    """The witness section's (n_witness, 8) int32 words on `device`, read
+    from the file in chunks of INGEST_CHUNK bytes, INGEST_READERS at a time,
+    into one host buffer. For CUDA the buffer is page-locked (torch's
+    caching host allocator, which holds a block back from reuse until the
+    copies from it are done) and each chunk's copy is launched on the
+    current stream once the chunk has landed, so the reads that follow
+    overlap it; the CPU reads into the words themselves. Counts the chunks
+    (`chunks`)."""
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty((wtns.header.n_witness, NLIMB), dtype=torch.int32, pin_memory=cuda)
+    words = torch.empty_like(host, device=device) if cuda else host
+    src, dst = host.view(-1).view(torch.uint8), words.view(-1).view(torch.uint8)
+    for lo, hi in wtns.read_words(host.numpy(), INGEST_CHUNK, INGEST_READERS):
+        if cuda:
+            dst[lo:hi].copy_(src[lo:hi], non_blocking=True)
+        trace.count("chunks")
+    return words
+
+
 def read_witness(wtns_path: str, hdr, device):
     """The witness file checked against the proving key's header: returns
-    (WtnsFile, (8, n_vars) standard-form limbs on `device`)."""
+    (WtnsFile, (8, n_vars) standard-form limbs on `device`), the words
+    uploaded as the file holds them and turned by K18 (on the CPU by its
+    plain version)."""
     with trace.span("ingest.open", host=True):
         wtns = WtnsFile(wtns_path)
         if wtns.header.q != hdr.r:
@@ -222,10 +252,8 @@ def read_witness(wtns_path: str, hdr, device):
             raise ValueError(
                 f"invalid witness length: circuit {hdr.n_vars}, witness {wtns.header.n_witness}"
             )
-    with trace.span("ingest.transpose", host=True):
-        limbs = lb.words_to_host_limbs(wtns.witness_limbs())
     with trace.span("ingest.copy"):
-        return wtns, limbs.to(device)
+        return wtns, lb.words_to_device_limbs(upload_words(wtns, device))
 
 
 def assemble_proof(hdr, wtns: WtnsFile, commitments, deterministic: bool, rng, timer):

@@ -20,13 +20,13 @@ torch.set_num_threads(1)
 PHASES = ["witness_ingest", "r1cs_ntt", "msm", "randomize_assemble", "serialize"]
 # (span, parent) of one prove, in the order the spans open
 TREE = [("prove", None), ("api.lookup", "prove"), ("ingest.open", "prove"),
-        ("ingest.transpose", "prove"), ("ingest.copy", "prove"), ("r1cs_ntt", "prove"),
+        ("ingest.copy", "prove"), ("ingest.read", "ingest.copy"), ("r1cs_ntt", "prove"),
         ("msm.g1", "prove"), ("msm.sort", "msm.g1"), ("msm.accumulate", "msm.g1"),
         ("msm.reduce", "msm.g1"), ("msm.g2", "prove"), ("msm.sort", "msm.g2"),
         ("msm.accumulate", "msm.g2"), ("msm.reduce", "msm.g2"), ("msm.to_host", "prove"),
         ("msm.combine", "prove"), ("assemble.randomize", "prove"),
         ("assemble.public", "prove"), ("assemble.serialize", "prove"), ("api.write", "prove")]
-HOST = {"api.lookup", "ingest.open", "ingest.transpose", "msm.combine", "assemble.randomize",
+HOST = {"api.lookup", "ingest.open", "ingest.read", "msm.combine", "assemble.randomize",
         "assemble.public", "assemble.serialize", "api.write"}
 
 
@@ -72,6 +72,8 @@ def test_a_timed_prove_records_its_span_tree(proved):
     assert t.self_ns("msm.g1") == recs[6].duration_ns - sum(r.duration_ns for r in recs[7:10])
     assert t.self_ns(lambda r: r.name.startswith("msm.g")) == \
         t.self_ns("msm.g1") + t.self_ns("msm.g2")
+    # the witness fits one chunk: one read, one chunk counted, no wait
+    assert recs[3].counts == {"chunks": 1} and recs[4].counts == {}
 
 
 def test_phases_of_a_timed_prove_are_unchanged(proved):
@@ -241,3 +243,25 @@ def test_span_times_map_onto_the_profilers_clock():
     inner = t.records[1]
     start, end = t.to_trace_ns(inner.start), t.to_trace_ns(inner.end)
     assert abs(start - ranges[0].start_ns()) < 1e6 and abs(end - ranges[0].end_ns()) < 1e6
+
+
+@pytest.mark.chip
+def test_the_ingest_waits_for_nothing_on_the_card(proved):
+    """A timed prove on the card: the witness's chunks are copied without a
+    blocking wait (`ingest.copy` counts its chunk and no sync), its one read
+    opens with the card's stream empty, and the proof is the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp, zkey, vk, wtns, cm, timers, proofs = proved
+    cuda = api.CacheManager("cuda")
+    proof, public = str(tmp / "proof_card.json"), str(tmp / "public_card.json")
+    api.groth16_prove(wtns, zkey, proof, public, cuda, deterministic=True)  # warm-up
+    t = pipeline.PhaseTimer("cuda")
+    api.groth16_prove(wtns, zkey, proof, public, cuda, deterministic=True, timer=t)
+    recs = t.records
+    assert [(r.name, None if r.parent is None else recs[r.parent].name)
+            for r in recs[:6]] == TREE[:6]
+    counts = {r.name: r.counts for r in recs if r.name.startswith("ingest.")}
+    assert counts == {"ingest.open": {}, "ingest.copy": {"chunks": 1}, "ingest.read": {}}
+    assert recs[4].name == "ingest.read" and recs[4].stream_idle
+    assert open(proof).read() == proofs[0]
