@@ -783,6 +783,30 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_
 
 # ---------------------------------------------------------------- host side
 
+class HostCopy:
+    """A tensor's copy to the host, started when made and waited for by
+    `wait`. On CUDA: a non-blocking copy into page-locked memory (torch's
+    caching host allocator) on the current stream, with an event recorded
+    behind it, so `wait` blocks on the copy and what was queued before it,
+    not on work queued later. On the CPU the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def wait(self) -> np.ndarray:
+        """The copy as a numpy array, once it has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 def _col_ints(arr: np.ndarray) -> list:
     """(8, k) uint32 Montgomery limbs -> k standard-form Fq ints."""
     raw = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32).T).astype("<u4").tobytes()

@@ -255,5 +255,6 @@ def prove_multichip(mesh, wtns_path: str, cache, deterministic: bool = False, rn
     pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws_b2.cpu().numpy(), 0), c2,
                                   g2=True)
     timer.mark("horner")
-    return pipeline.assemble_proof(hdr, wtns, (pi_a, pi_b1, pi_b, pi_c, pi_h), deterministic,
-                                   rng, timer)
+    r, s = pipeline.draw_rs(deterministic, rng)
+    proof_points = pipeline.randomize(hdr, (pi_a, pi_b1, pi_b, pi_c, pi_h), r, s)
+    return pipeline.assemble_proof(hdr, wtns, proof_points, timer)

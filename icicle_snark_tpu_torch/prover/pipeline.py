@@ -14,8 +14,17 @@ byte-identical:
   coset evaluation     bit-reversed INTT, key powers, NTT        K5 (K3, K1
   h values             (A*B - C) on the coset, times R^2         below 2^3)
   5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2)        K4 (K6 sliced)
-  randomization        host projective ops (refmath)             -
+  randomization        host projective ops (refmath), run while  -
+                       the card works on the MSMs (below)
   serialization        decimal strings                           -
+
+The host's MSM and randomisation work runs where it would otherwise wait
+on the card (`commit_and_randomize`): r and s are drawn first; the products
+that need no MSM result (`randomize_terms`) run while G1's kernels do; G1's
+window sums are copied down as soon as its reduce is queued, and their
+combine and the products that need them (`randomize_g1`) run while G2's
+kernels do. After the last kernel only the G2 combine, B's last addition
+(`randomize_g2`) and serialization are left.
 
 Montgomery bookkeeping (R = 2^256, the snarkjs on-disk radix):
   coef_disk = c*R, witness = w (standard)
@@ -39,6 +48,8 @@ twiddle tables (604 MB): about 1.1 GB of an 80 GB card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -178,12 +189,20 @@ def construct_r1cs(witness: torch.Tensor, cache: ZKeyCache) -> torch.Tensor:
     return ntt_ops.coset_h(r1cs_rows(witness, cache.plan), cache.domain, cache.keys_br_scaled)
 
 
-def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: ZKeyCache):
-    """The 5 MSMs (reference: groth16_commitments, proof_helper.rs:172-241),
-    as host projective points (standard-form ints):
+def commit_and_randomize(witness: torch.Tensor, h_scalars: torch.Tensor, cache: ZKeyCache,
+                         r: int, s: int):
+    """The 5 MSMs (reference: groth16_commitments, proof_helper.rs:172-241)
       pi_a = <w, A>, pi_b1 = <w, B1>, pi_b = <w, B2> (G2),
-      pi_c = <w[npub+1:], C>, pi_h = <h, H>."""
-    npub = cache.header.n_public
+      pi_c = <w[npub+1:], C>, pi_h = <h, H>,
+    randomised with r and s (`draw_rs`; reference: groth16_prove_helper,
+    proof_helper.rs:274-295). Returns the proof's (pi_a, pi_b, pi_c) as
+    host projective points (standard-form ints).
+
+    The host's work runs while the card works: the MSM-independent
+    products while G1's kernels run, G1's combine and the products that
+    need it while G2's run (the module's docstring)."""
+    hdr = cache.header
+    npub = hdr.n_public
     scalars = torch.cat([witness, witness, witness[:, npub + 1:], h_scalars], dim=-1)
     c, c2 = cache.msm_c, cache.msm_c2
     pre, pre2 = cache.msm_pre, cache.msm_pre2
@@ -196,6 +215,9 @@ def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: Z
                                              pre)
         else:
             ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_records, c, pre)
+        ws1 = msm_ops.HostCopy(ws1)
+    with trace.span("assemble.precompute", host=True):
+        terms = randomize_terms(hdr, r, s)
     n2 = witness.shape[-1]
     with trace.span("msm.g2"):
         if n2 * pre2 > cap2:
@@ -203,14 +225,18 @@ def groth16_commitments(witness: torch.Tensor, h_scalars: torch.Tensor, cache: Z
         else:
             ws2 = msm_ops.msm_window_sums(witness, [n2], cache.b2_records, c2, pre2)
     with trace.span("msm.to_host"):
-        ws1_np, ws2_np = ws1.cpu().numpy(), ws2.cpu().numpy()
+        ws1 = ws1.wait()
     with trace.span("msm.combine", host=True):
-        pi_a, pi_b1, pi_c, pi_h = (
-            msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1_np, g), c)
-            for g in range(4)
-        )
-        pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws2_np, 0), c2, g2=True)
-    return pi_a, pi_b1, pi_b, pi_c, pi_h
+        g1 = [msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1, g), c)
+              for g in range(4)]
+    with trace.span("assemble.randomize", host=True):
+        pi_a, pi_c = randomize_g1(terms, r, s, *g1)
+    with trace.span("msm.to_host"):
+        ws2 = ws2.cpu().numpy()
+    with trace.span("msm.combine", host=True):
+        pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws2, 0), c2, g2=True)
+    with trace.span("assemble.randomize", host=True):
+        return pi_a, randomize_g2(terms, pi_b), pi_c
 
 
 # Bytes of the witness section read (and, on the card, copied) at a time,
@@ -256,56 +282,92 @@ def read_witness(wtns_path: str, hdr, device):
         return wtns, lb.words_to_device_limbs(upload_words(wtns, device))
 
 
-def assemble_proof(hdr, wtns: WtnsFile, commitments, deterministic: bool, rng, timer):
-    """Randomization and assembly on the host (proof_helper.rs:274-295):
-    the five MSM results (pi_a, pi_b1, pi_b, pi_c, pi_h) as host projective
-    points -> (proof_dict, public_signals); `timer` (a PhaseTimer, or
-    trace.NULL) takes the phases randomize_assemble and serialize."""
-    with trace.span("assemble.randomize", host=True):
-        proof = _randomize(hdr, commitments, deterministic, rng)
+def assemble_proof(hdr, wtns: WtnsFile, proof_points, timer):
+    """Assembly on the host: the randomised (pi_a, pi_b, pi_c) as host
+    projective points -> (proof_dict, public_signals); `timer` (a
+    PhaseTimer, or trace.NULL) takes the phases randomize_assemble (since
+    the randomisation runs under the MSMs, nothing but the mark on the
+    single-device prove) and serialize."""
     timer.mark("randomize_assemble")
-
     with trace.span("assemble.public", host=True):
         public_signals = [str(v) for v in wtns.witness_ints(1, hdr.n_public)]
     with trace.span("assemble.serialize", host=True):
-        proof = serialize_proof(*proof)
+        proof = serialize_proof(*proof_points)
     timer.mark("serialize")
     return proof, public_signals
 
 
-def _randomize(hdr, commitments, deterministic: bool, rng):
-    """(pi_a, pi_b, pi_c) randomized with r and s (r = s = 1 when
-    deterministic), as host projective points."""
-    pi_a, pi_b1, pi_b, pi_c, pi_h = commitments
-    alpha1 = cv.g1_from_affine(hdr.vk_alpha_1)
-    beta1 = cv.g1_from_affine(hdr.vk_beta_1)
-    delta1 = cv.g1_from_affine(hdr.vk_delta_1)
-    beta2 = cv.g2_from_affine(hdr.vk_beta_2)
-    delta2 = cv.g2_from_affine(hdr.vk_delta_2)
-
+def draw_rs(deterministic: bool, rng) -> tuple:
+    """(r, s): 1 and 1 when deterministic (the reference's `no-randomness`
+    feature, proof_helper.rs:287-295), else r then s drawn below the group
+    order from `rng` (anything with `randbelow`) or `secrets`."""
     if deterministic:
-        r = s = 1  # reference `no-randomness` feature (proof_helper.rs:287-295)
-    else:
-        import secrets
+        return 1, 1
+    import secrets
 
-        r = (rng or secrets).randbelow(R_MOD)
-        s = (rng or secrets).randbelow(R_MOD)
+    src = rng or secrets
+    r = src.randbelow(R_MOD)
+    return r, src.randbelow(R_MOD)
 
-    pi_a = cv.g1_add(pi_a, cv.g1_add(alpha1, cv.g1_mul(delta1, r)))
-    pi_b = cv.g2_add(pi_b, cv.g2_add(beta2, cv.g2_mul(delta2, s)))
-    pi_b1 = cv.g1_add(pi_b1, cv.g1_add(beta1, cv.g1_mul(delta1, s)))
+
+class RandomizeTerms(NamedTuple):
+    """The randomisation's products that need no MSM result: alpha1 + r
+    delta1, beta1 + s delta1, beta2 + s delta2 (G2) and -(rs) delta1."""
+
+    a: tuple
+    b1: tuple
+    b2: tuple
+    rs: tuple
+
+
+def randomize_terms(hdr, r: int, s: int) -> RandomizeTerms:
+    """The MSM-independent part of the randomisation, from the proving
+    key's alpha, beta and delta; host projective points."""
+    delta1 = cv.g1_from_affine(hdr.vk_delta_1)
+    return RandomizeTerms(
+        a=cv.g1_add(cv.g1_from_affine(hdr.vk_alpha_1), cv.g1_mul(delta1, r)),
+        b1=cv.g1_add(cv.g1_from_affine(hdr.vk_beta_1), cv.g1_mul(delta1, s)),
+        b2=cv.g2_add(cv.g2_from_affine(hdr.vk_beta_2),
+                     cv.g2_mul(cv.g2_from_affine(hdr.vk_delta_2), s)),
+        rs=cv.g1_neg(cv.g1_mul(delta1, r * s % R_MOD)),
+    )
+
+
+def randomize_g1(terms: RandomizeTerms, r: int, s: int, pi_a, pi_b1, pi_c, pi_h):
+    """The randomisation's part that needs the G1 MSMs alone: (A, C) with
+    A = pi_a + alpha1 + r delta1, B1 = pi_b1 + beta1 + s delta1 and
+    C = pi_c + pi_h + s A + r B1 - rs delta1, in the reference's order."""
+    pi_a = cv.g1_add(pi_a, terms.a)
+    pi_b1 = cv.g1_add(pi_b1, terms.b1)
     pi_c = cv.g1_add(pi_c, pi_h)
     pi_c = cv.g1_add(pi_c, cv.g1_mul(pi_a, s))
     pi_c = cv.g1_add(pi_c, cv.g1_mul(pi_b1, r))
-    pi_c = cv.g1_add(pi_c, cv.g1_neg(cv.g1_mul(delta1, r * s % R_MOD)))
-    return pi_a, pi_b, pi_c
+    return pi_a, cv.g1_add(pi_c, terms.rs)
+
+
+def randomize_g2(terms: RandomizeTerms, pi_b):
+    """The randomisation's last part, after the G2 MSM: B = pi_b + beta2 +
+    s delta2."""
+    return cv.g2_add(pi_b, terms.b2)
+
+
+def randomize(hdr, commitments, r: int, s: int):
+    """(pi_a, pi_b, pi_c) from the five MSM results (pi_a, pi_b1, pi_b,
+    pi_c, pi_h) randomised with r and s in one go, for a prove that has
+    them all at once (the sharded one); the single-device prove runs the
+    three parts apart (`commit_and_randomize`)."""
+    pi_a, pi_b1, pi_b, pi_c, pi_h = commitments
+    terms = randomize_terms(hdr, r, s)
+    pi_a, pi_c = randomize_g1(terms, r, s, pi_a, pi_b1, pi_c, pi_h)
+    return pi_a, randomize_g2(terms, pi_b), pi_c
 
 
 def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=None,
           timer: PhaseTimer | None = None):
     """Full prove from a witness file against a warm cache; returns
-    (proof_dict, public_signals). Randomization and assembly run on the
-    host (proof_helper.rs:274-295). A given `timer` takes the phases and,
+    (proof_dict, public_signals). Randomization runs on the host while the
+    card works on the MSMs, assembly after them (proof_helper.rs:274-295;
+    `commit_and_randomize`). A given `timer` takes the phases and,
     active for the call, its spans and counters (trace.py); without one
     the prove records nothing and never waits for the device to mark."""
     device = cache.keys_br_scaled.device
@@ -317,6 +379,7 @@ def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=Non
         with trace.span("r1cs_ntt"):
             h_scalars = construct_r1cs(witness, cache)
         timer.mark("r1cs_ntt")
-        commitments = groth16_commitments(witness, h_scalars, cache)
+        r, s = draw_rs(deterministic, rng)
+        proof_points = commit_and_randomize(witness, h_scalars, cache, r, s)
         timer.mark("msm")
-        return assemble_proof(cache.header, wtns, commitments, deterministic, rng, timer)
+        return assemble_proof(cache.header, wtns, proof_points, timer)

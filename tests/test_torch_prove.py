@@ -176,3 +176,33 @@ def test_port_large_circuit_routes_give_the_same_proof(fixture, jax_proof, route
     proof, public = pipeline.prove(wtns_path, cache, deterministic=True)
     assert (proof, public) == jax_proof
     assert oracle.verify(proof, public, vk)
+
+
+class _Seeded:
+    """A seeded source with the `randbelow` that both provers draw r and s by."""
+
+    def __init__(self, seed):
+        import random
+
+        self._rng = random.Random(seed)
+
+    def randbelow(self, n: int) -> int:
+        return self._rng.randrange(n)
+
+
+@pytest.mark.parametrize("seed", [1, 2**31 + 5])
+def test_seeded_prove_bitexact_vs_jax(fixture, seed):
+    """A randomised proof with r and s from one seeded source is the JAX
+    package's, byte for byte: the port draws r, then s, before its MSMs and
+    splits the randomisation around them; the JAX package draws them after
+    and randomises in one step. r and s differ, so swapping them, or s A'
+    and r B1', changes the proof."""
+    zkey_path, wtns_path, vk, _witness = fixture
+    src = _Seeded(seed)
+    assert src.randbelow(R_MOD) != src.randbelow(R_MOD)
+    cache = load_zkey_cache(zkey_path, device="cpu")
+    proof, public = pipeline.prove(wtns_path, cache, rng=_Seeded(seed))
+    want = jpipeline.prove(wtns_path, jcache.load_zkey_cache(zkey_path), rng=_Seeded(seed))
+    assert (proof, public) == want
+    assert proof != pipeline.prove(wtns_path, cache, deterministic=True)[0]
+    assert oracle.verify(proof, public, vk)

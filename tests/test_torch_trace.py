@@ -19,15 +19,20 @@ torch.set_num_threads(1)
 
 PHASES = ["witness_ingest", "r1cs_ntt", "msm", "randomize_assemble", "serialize"]
 # (span, parent) of one prove, in the order the spans open
+# The randomisation runs inside the msm phase: its MSM-independent products
+# (assemble.precompute) between G1's launches and G2's, G1's combine and the
+# products that need it between G2's launches and G2's download, B's last
+# addition after G2's combine.
 TREE = [("prove", None), ("api.lookup", "prove"), ("ingest.open", "prove"),
         ("ingest.copy", "prove"), ("ingest.read", "ingest.copy"), ("r1cs_ntt", "prove"),
         ("msm.g1", "prove"), ("msm.sort", "msm.g1"), ("msm.accumulate", "msm.g1"),
-        ("msm.reduce", "msm.g1"), ("msm.g2", "prove"), ("msm.sort", "msm.g2"),
-        ("msm.accumulate", "msm.g2"), ("msm.reduce", "msm.g2"), ("msm.to_host", "prove"),
-        ("msm.combine", "prove"), ("assemble.randomize", "prove"),
+        ("msm.reduce", "msm.g1"), ("assemble.precompute", "prove"), ("msm.g2", "prove"),
+        ("msm.sort", "msm.g2"), ("msm.accumulate", "msm.g2"), ("msm.reduce", "msm.g2"),
+        ("msm.to_host", "prove"), ("msm.combine", "prove"), ("assemble.randomize", "prove"),
+        ("msm.to_host", "prove"), ("msm.combine", "prove"), ("assemble.randomize", "prove"),
         ("assemble.public", "prove"), ("assemble.serialize", "prove"), ("api.write", "prove")]
-HOST = {"api.lookup", "ingest.open", "ingest.read", "msm.combine", "assemble.randomize",
-        "assemble.public", "assemble.serialize", "api.write"}
+HOST = {"api.lookup", "ingest.open", "ingest.read", "assemble.precompute", "msm.combine",
+        "assemble.randomize", "assemble.public", "assemble.serialize", "api.write"}
 
 
 @pytest.fixture(scope="module")
