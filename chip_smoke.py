@@ -14,6 +14,7 @@
     python3 chip_smoke.py --family-only     # the reference's benchmark family at full size
     python3 chip_smoke.py --cache-only      # the cold cache at complex-N and complex-M, by phase
     python3 chip_smoke.py --ingest-only     # K18 against plain, timed; the witness ingest A/B
+    python3 chip_smoke.py --k4-only [--k4-parent DIR]  # K4 by instantiation at the cells' shapes
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. build the kernels (csrc/*.cu, nvcc for sm_90a); print the card's name
@@ -466,35 +467,42 @@ def fused_pass_times(rng, dom, dev) -> dict:
     return out
 
 
+def ptxas_parse(text: str, src: str, out: dict) -> dict:
+    """Registers, stack and spill bytes of each kernel in one source's
+    `-Xptxas -v` output, into `out` by mangled entry name."""
+    import re
+
+    entry = props = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {"source": src})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and props in out:
+            out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 def ptxas_usage() -> dict:
     """Registers, stack and spill bytes of every kernel, from the build's
     `-Xptxas -v` output, by mangled entry name."""
-    import re
-
     from icicle_snark_tpu_torch import kernels
 
     out = {}
     for src, text in kernels.build_logs().items():
-        entry = props = None
-        for line in text.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                entry = m.group(1)
-                out.setdefault(entry, {"source": src})
-                continue
-            m = re.search(r"Function properties for (\S+)", line)
-            if m:
-                props = m.group(1)
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and props in out:
-                out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                                  spill_loads=int(m.group(3)))
-                continue
-            m = re.search(r"Used (\d+) registers", line)
-            if m and entry:
-                out[entry]["registers"] = int(m.group(1))
+        ptxas_parse(text, src, out)
     return out
 
 
@@ -4031,6 +4039,328 @@ def ingest_only(args, dev, rng, card) -> int:
     return 1 if failures else 0
 
 
+# ---------------------------------------------------------------- K4 A/B
+
+# (G1 group sizes, G2 lanes, witness) of the benchmark's two circuits
+# (PERF.md section 4): complex-1600k's witness is uniform, anon_aadhaar's
+# mostly bits
+K4_CASES = {
+    "complex-1600k": ([1600003] * 3 + [2097150], 1600003, "uniform"),
+    "anon_aadhaar-1536": ([936533] * 3 + [1048566], 936533, "bits"),
+}
+K4_SOURCES = ("msm.cu", "msm_reduce.cu")
+# sources whose kernels K4's change must leave as they were: K13, K11, K4's rows
+K4_SAME = ("msm_bls12_377.cu", "msm_bls12_381.cu", "msm_bw6_761.cu", "fixed_base.cu",
+           "msm_reduce.cu")
+
+
+def k4_builds(variants: dict) -> dict:
+    """Compile K4's two sources of each variant ({name: (csrc dir, threads
+    or None)}) with `-Xptxas -v`, in parallel, under build/k4/<name>, with
+    the accumulate's and the segments stage's block size set to `threads`;
+    and the PTX of K4_SAME from the first two variants. A variant whose
+    build fails or outlasts 480 s is dropped. Returns {name: (library path,
+    ptxas usage, {source: PTX})} and {name: why dropped}."""
+    import re
+    import shutil
+
+    from icicle_snark_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    procs, out = [], {}
+    for k, (name, (csrc, threads)) in enumerate(variants.items()):
+        d = os.path.join(HERE, "build", "k4", name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        if threads:
+            hdr = os.path.join(d, "msm_kernels.cuh")
+            with open(hdr) as fh:
+                text = fh.read()
+            text, n_acc = re.subn(r"(struct AccThreads[^\n]*N = )\d+", rf"\g<1>{threads}", text)
+            text, n_seg = re.subn(r"#define SEG_THREADS \d+", f"#define SEG_THREADS {threads}",
+                                  text)
+            assert n_acc and n_seg, "msm_kernels.cuh has no AccThreads / SEG_THREADS"
+            with open(hdr, "w") as fh:
+                fh.write(text)
+        for src in K4_SOURCES:
+            cmd = [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", src + ".o"]
+            procs.append((name, src, subprocess.Popen(cmd, cwd=d, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True)))
+        if k < 2:
+            for src in K4_SAME:
+                cmd = [nvcc, *kernels.NVCC_FLAGS, "-ptx", src, "-o", src + ".ptx"]
+                procs.append((name, src + ".ptx", subprocess.Popen(
+                    cmd, cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        out[name] = [os.path.join(d, "libk4.so"), {}, {}]
+    failed, deadline = {}, time.perf_counter() + 480
+    for name, src, proc in procs:
+        try:
+            text = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text = proc.communicate()[0] + "\n(killed at the build's time limit)"
+        if proc.returncode:
+            failed[name] = f"nvcc failed for {src} (rc {proc.returncode}): {text[-2000:]}"
+        elif not src.endswith(".ptx"):
+            ptxas_parse(text, src, out[name][1])
+    for name, why in failed.items():
+        log(f"[k4] variant {name} dropped: {why}")
+        del out[name]
+    for lib, _usage, ptx in out.values():
+        d = os.path.dirname(lib)
+        subprocess.run([nvcc, kernels.NVCC_FLAGS[0], "-shared", *[s + ".o" for s in K4_SOURCES],
+                        "-o", lib], cwd=d, check=True)
+        for src in K4_SAME:
+            path = os.path.join(d, src + ".ptx")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    ptx[src] = fh.read()
+    return out, failed
+
+
+def ptx_entries(text: str) -> dict:
+    """{kernel or function name: its PTX text} of one PTX file."""
+    import re
+
+    head = r"(?:\.visible |\.weak |\.extern )*\.(?:entry|func)\s+(?:\([^)]*\)\s*)?(\w+)"
+    found = list(re.finditer(rf"(?m)^{head}", text))
+    ends = [m.start() for m in found[1:]] + [len(text)]
+    return {m.group(1): text[m.start():end] for m, end in zip(found, ends)}
+
+
+def k4_lib(path: str):
+    import ctypes
+
+    from icicle_snark_tpu_torch import kernels
+
+    lib = ctypes.CDLL(path)
+    for name in ("snark_msm_accumulate", "snark_msm_reduce"):
+        fn = getattr(lib, name)
+        fn.argtypes = kernels._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def k4_inputs(gen, sizes, kind: str, g2: bool, dev):
+    """Scalars and records of one MSM at a circuit's shape: canonical
+    random coordinates with 1 % (0, 0) records; uniform scalars, or for
+    `bits` a witness of 85 % bits and 15 % uniform values in every group
+    but the last (h, uniform)."""
+    import torch
+
+    top = 0x30644E72  # the top word of q and of r
+
+    def field(rows, n):
+        w = torch.randint(0, 1 << 32, (rows, 8, n), generator=gen, device=dev, dtype=torch.int64)
+        w[:, 7] %= top
+        return w.to(torch.int32)
+
+    total = sum(sizes)
+    sc = field(1, total)[0]
+    if kind == "bits":
+        n_w = total - sizes[-1]
+        bits = torch.rand(n_w, generator=gen, device=dev) < 0.85
+        sc[:, :n_w] = torch.where(bits, 0, sc[:, :n_w])
+        sc[0, :n_w] = torch.where(bits, torch.randint(0, 2, (n_w,), generator=gen, device=dev,
+                                                      dtype=torch.int32), sc[0, :n_w])
+    words = 16 if g2 else 8
+    rec = field(2 * words // 8, total).permute(2, 0, 1).reshape(total, 2 * words)
+    inf = torch.rand(total, generator=gen, device=dev) < 0.01
+    rec[inf] = 0
+    return sc, rec.contiguous()
+
+
+def k4_run(lib, case, reps: int) -> tuple:
+    """K4's launches of one MSM through `lib`, CUDA events a launch: level
+    0, the fold levels (summed), the segments stage and the rows stage;
+    `reps` times after one warm-up. Returns ({launch: [ms, ...]}, the last
+    run's (bucket sums, S, T, window sums))."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import msm
+
+    g2, rec, order, negs, plan, windows, groups, half = case
+    coords = (2, 8) if g2 else (8,)
+    stream = torch.cuda.current_stream().cuda_stream
+    seg, n_seg, nt, _q = msm.reduce_shape(half)
+    rows = windows * groups
+    times = {}
+
+    def once(record: bool):
+        src, affine, outs = rec, True, []
+        for k, (start, length) in enumerate(plan):
+            out = torch.empty((3,) + coords + (start.shape[0],), dtype=torch.int32,
+                              device=rec.device)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            n_src = src.shape[0] if affine else src.shape[-1]
+            err = lib.snark_msm_accumulate(int(g2), int(affine), out.data_ptr(), src.data_ptr(),
+                                           n_src, order.data_ptr(), negs.data_ptr(),
+                                           start.data_ptr(), length.data_ptr(), start.shape[0],
+                                           stream)
+            e1.record()
+            assert err == 0, f"accumulate launch failed: {err}"
+            outs.append(("level0" if k == 0 else "folds", e0, e1))
+            src, affine = out, False
+        seg_s, seg_t = (torch.empty((3,) + coords + (rows * n_seg,), dtype=torch.int32,
+                                    device=rec.device) for _ in range(2))
+        wsum = torch.empty((3,) + coords + (groups, windows), dtype=torch.int32, device=rec.device)
+        for stage in (0, 1):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = lib.snark_msm_reduce(int(g2), stage, wsum.data_ptr(), seg_s.data_ptr(),
+                                       seg_t.data_ptr(), src.data_ptr(), windows, groups, half,
+                                       seg, nt, stream)
+            e1.record()
+            assert err == 0, f"reduce launch failed: {err}"
+            outs.append(("segments" if stage == 0 else "rows", e0, e1))
+        torch.cuda.synchronize()
+        if record:
+            step = {}
+            for name, e0, e1 in outs:
+                step[name] = step.get(name, 0.0) + e0.elapsed_time(e1)
+            for name, ms in step.items():
+                times.setdefault(name, []).append(ms)
+        return src, seg_s, seg_t, wsum
+
+    once(False)
+    for _ in range(reps):
+        got = once(True)
+    return times, got
+
+
+def k4_edge_check(lib, rng, dev) -> bool:
+    """The library's K4 on the edge MSM (P + P, P + (-P), (0, 0)) with L = 2,
+    several fold levels, word for word against the plain versions."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import msm
+
+    ok = True
+    for g2 in (False, True):
+        sc, pts = _edge_msm_inputs(rng, dev, g2)
+        rec = msm.point_records(pts)
+        with patched((msm, "BUCKET_PIECE", 2)):
+            order, negs, ends = msm.sort_windows(sc, [sc.shape[-1]], 8)
+            windows, total = order.shape
+            plan = msm.bucket_fold_plan(ends, windows, 1, 128, total)
+            case = (g2, rec, order.reshape(-1).contiguous(), negs.reshape(-1).contiguous(),
+                    [(st.contiguous(), ln.contiguous()) for st, ln in plan], windows, 1, 128)
+            _t, (bk, seg_s, seg_t, wsum) = k4_run(lib, case, 1)
+            want_b = msm.msm_accumulate_plain(rec, order, negs, ends, 1, 128)
+            ops = msm._ops(g2, True)
+            seg = msm.reduce_shape(128)[0]
+            s_p, t_p = msm.msm_reduce_segments_plain(ops, want_b, windows, 128, seg)
+            same = (torch.equal(bk, want_b) and torch.equal(seg_s, torch.stack(s_p))
+                    and torch.equal(seg_t, torch.stack(t_p))
+                    and torch.equal(wsum, msm.msm_reduce_plain(want_b, windows, 1, 128)))
+        log(f"  k4 edge {'g2' if g2 else 'g1'}: {len(plan)} levels, equal to plain {same}")
+        ok &= same
+    return ok
+
+
+def k4_only(args, dev, rng, card) -> int:
+    """--k4-only: K4's instantiations timed one launch at a time at the two
+    cells' MSM shapes, for this tree's sources at the block sizes of
+    --k4-threads and, with --k4-parent, for the parent's sources, in turns
+    in one process; each library's outputs word for word against the
+    first's, this tree's against the plain versions on the edge MSM; the
+    `-Xptxas -v` usage of every build; and which kernels of K4_SAME's
+    sources differ in PTX from the parent's. Builds only K4's sources (no
+    fixture, no package build). Writes chip_smoke_k4.json into OUT_DIR."""
+    import statistics
+
+    import torch
+
+    from icicle_snark_tpu_torch.ops import msm
+
+    here = os.path.join(HERE, "icicle_snark_tpu_torch", "csrc")
+    variants = {}
+    if args.k4_parent:
+        variants["parent"] = (args.k4_parent, None)
+    variants["change"] = (here, None)
+    for t in args.k4_threads:
+        variants[f"change_t{t}"] = (here, t)
+    t0 = time.perf_counter()
+    built, dropped = k4_builds(variants)
+    log(f"[k4] {len(variants)} builds in {time.perf_counter() - t0:.1f} s")
+    failures = [f"{name} did not build" for name in dropped if name in ("parent", "change")]
+    report = {"card": card, "usage": {}, "ptx_differs": {}, "cases": {}, "dropped": dropped}
+    for name, (_lib, usage, _ptx) in built.items():
+        report["usage"][name] = usage
+        for entry, u in sorted(usage.items()):
+            if "msm_" in entry:
+                log(f"[k4 build] {name} {u['source']} {entry}: {u.get('registers')} registers, "
+                    f"stack {u.get('stack')} B, spill stores {u.get('spill_stores')} B, loads "
+                    f"{u.get('spill_loads')} B")
+    if "parent" in built and "change" in built:
+        for src in K4_SAME:
+            a, b = (ptx_entries(built[n][2].get(src, "")) for n in ("parent", "change"))
+            differ = sorted(e for e in set(a) | set(b) if a.get(e) != b.get(e))
+            report["ptx_differs"][src] = differ
+            for e in differ:  # for a diff off the card
+                for n, entries in (("parent", a), ("change", b)):
+                    path = os.path.join(OUT_DIR, "k4_ptx", f"{src}.{e}.{n}.ptx")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    with open(path, "w") as fh:
+                        fh.write(entries.get(e, ""))
+            log(f"[k4 ptx] {src}: {len(a)} entries, differing from the parent's: {differ}")
+            if src != "msm_reduce.cu" and differ:
+                failures.append(f"{src}: kernels differ from the parent's")
+            if any("rows" in e for e in differ):
+                failures.append("msm_reduce_rows_kernel differs from the parent's")
+    libs = {name: k4_lib(lib) for name, (lib, _u, _p) in built.items()}
+    x = torch.ones((1 << 26,), device=dev)
+    for _ in range(200):  # the card's clocks up (warm_card needs the package's build)
+        x.mul_(1.0)
+    torch.cuda.synchronize()
+    for name, lib in libs.items():
+        if name != "parent" and not k4_edge_check(lib, rng, dev):
+            failures.append(f"{name}: K4 differs from its plain versions on the edge MSM")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    names = list(libs)
+    for circuit, (sizes, n2, kind) in K4_CASES.items():
+        for g2 in (False, True):
+            szs = [n2] if g2 else sizes
+            c = msm.choose_c(sum(szs), len(szs))
+            sc, rec = k4_inputs(gen, szs, kind, g2, dev)
+            order, negs, ends = msm.sort_windows(sc, szs, c)
+            windows, total = order.shape
+            half = 1 << (c - 1)
+            plan = msm.bucket_fold_plan(ends, windows, len(szs), half, total)
+            case = (g2, rec, order.reshape(-1).contiguous(), negs.reshape(-1).contiguous(),
+                    plan, windows, len(szs), half)
+            del sc, ends
+            tag = f"{circuit} {'g2' if g2 else 'g1'}"
+            times, first = {}, None
+            # turns: every library, then again in the reverse order
+            for name in names + names[::-1]:
+                t, got = k4_run(libs[name], case, 3)
+                for launch, ms in t.items():
+                    times.setdefault(name, {}).setdefault(launch, []).extend(ms)
+                if first is None:
+                    first = got
+                elif not all(torch.equal(a, b) for a, b in zip(first, got)):
+                    failures.append(f"{tag}: {name}'s words differ from {names[0]}'s")
+            med = {name: {launch: statistics.median(v) for launch, v in t.items()}
+                   for name, t in times.items()}
+            report["cases"][tag] = {"c": c, "lanes": total, "levels": len(plan),
+                                    "items": [int(st.shape[0]) for st, _ in plan],
+                                    "median_ms": med, "ms": times}
+            for name, m in med.items():
+                log(f"[k4] {tag}: {name} " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
+                    + f" ms (c {c}, {len(plan)} levels)")
+            del case, plan, order, negs, rec, first
+            torch.cuda.empty_cache()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_k4.json"), "w") as fh:
+        json.dump({**report, "failures": failures}, fh, indent=1)
+    for f in failures:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--constraints", type=int, default=100000)
@@ -4078,6 +4408,13 @@ def main() -> int:
                     help="build, check and time K18 against its plain version with its "
                          "registers, time the witness ingest's routes in turns at 1 600 003 "
                          "rows, and stop")
+    ap.add_argument("--k4-only", action="store_true",
+                    help="K4 by instantiation at the two cells' shapes, the block-size sweep "
+                         "and the parent's sources (--k4-parent) in turns, and stop")
+    ap.add_argument("--k4-parent", default=None,
+                    help="the csrc directory of the tree to compare K4 with")
+    ap.add_argument("--k4-threads", type=lambda v: [int(t) for t in v.split(",") if t],
+                    default=[], help="block sizes of K4's sweep, comma-separated")
     ap.add_argument("--fixture-dir", default=os.path.join(HERE, ".fixtures"),
                     help="where the complex-N fixtures are made or found")
     args = ap.parse_args()
@@ -4100,6 +4437,13 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     failures = []
     path_counts = {}
+
+    if args.k4_only:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[0]
+        log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, card {smi}")
+        return k4_only(args, dev, rng, smi)
 
     # ---- 1. build
     t0 = time.perf_counter()

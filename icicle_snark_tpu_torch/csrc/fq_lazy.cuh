@@ -1,14 +1,16 @@
-// Lazy BN254 Fq arithmetic for one thread, and K11's G1 window loop on it
-// (fixed_base.cu). field.cuh and curve.cuh stay the layer of every other
-// kernel, K11's G2 kernel included.
+// Lazy BN254 Fq arithmetic for one thread, the lazy point formulas over it,
+// and K11's G1 window loop (fixed_base.cu). K4's BN254 loops (msm_kernels.cuh)
+// run the same formulas, at G2 over fq2_lazy.cuh. field.cuh and curve.cuh
+// stay the layer of every other kernel, K11's G2 kernel included.
 //
-// Replaces, for that loop, icicle_snark_tpu/fields/limbs.py mont_mul,
-// add_mod and sub_mod (:375/:269/:293) as jcurve.pmadd uses them in
-// icicle_snark_tpu/setup/fast_setup.py _fixed_base_msm (:81). field.cuh ends
+// Replaces, for those loops, icicle_snark_tpu/fields/limbs.py mont_mul,
+// add_mod and sub_mod (:375/:269/:293) as jcurve.pmadd and jcurve.padd use
+// them in icicle_snark_tpu/setup/fast_setup.py _fixed_base_msm (:81) and
+// icicle_snark_tpu/ops/msm.py _window_bucket_prefixes (:609). field.cuh ends
 // every product, sum and difference canonical (a conditional subtraction of
 // q: an 8-word subtract and 8 selects), and curve.cuh forms 9x as four
 // canonical doublings and sums: together 15-20 % of the instructions of a
-// mixed add. Here every value of the window loop stays in [0, 2q):
+// mixed add. Here every value of the loop stays in [0, 2q):
 //   fq_lz_mul(a, b):  a, b < 2q -> out < 2q. field.cuh's CIOS in 64-bit C
 //     (not PTX carry chains: ptxas lowers those to more instructions) without
 //     its final subtraction. The running sum stays below a + q < 3q < R, and
@@ -22,12 +24,14 @@
 //     t - k q >= 0, and t - k q < q + 18 * 2^224 < 2q.
 //   fq_lz_canon(a):   a < 2q -> out < q.
 // Each operation computes the residue its canonical counterpart does, and
-// the loop makes each coordinate canonical when it stores it, so the
-// projective words equal those of curve.cuh's p_madd and of the plain
-// version (setup/fast_setup.py fixed_base_msm_plain) word for word.
+// a loop makes each coordinate canonical when it stores it, so the
+// projective words equal those of curve.cuh's formulas and of the plain
+// versions (setup/fast_setup.py fixed_base_msm_plain, ops/msm.py
+// msm_bucket_sums_plain, msm_reduce_segments_plain) word for word. Nothing
+// branches on a lazy value: the complete formulas need no such branch.
 // tests/test_torch_fq_lazy.py models these steps on Python integers and
-// checks every bound; tests/test_torch_setup_host_cuda.py runs the loop on
-// the host.
+// checks every bound; tests/test_torch_setup_host_cuda.py and
+// tests/test_torch_msm_host_cuda.py run the loops on the host.
 #pragma once
 #include "curve.cuh"
 
@@ -151,28 +155,68 @@ __device__ __forceinline__ E1 fq_lz_canon(const E1& a) {
   return r;
 }
 
+// The lazy operations by element type, for the formulas below (fq2_lazy.cuh
+// adds E2's)
+__device__ __forceinline__ E1 lz_mul(const E1& a, const E1& b) { return fq_lz_mul(a, b); }
+__device__ __forceinline__ E1 lz_add(const E1& a, const E1& b) { return fq_lz_add(a, b); }
+__device__ __forceinline__ E1 lz_sub(const E1& a, const E1& b) { return fq_lz_sub(a, b); }
+__device__ __forceinline__ E1 lz_mul_b3(const E1& x) { return fq_lz_mul9(x); }
+__device__ __forceinline__ E1 lz_canon(const E1& a) { return fq_lz_canon(a); }
+
 // RCB15 algorithm 8 (jcurve.pmadd, curve.cuh p_madd) in lazy arithmetic:
-// p + (qx, qy), p's coordinates in [0, 2q), (qx, qy) canonical and not the
+// p + (qx, qy), p's coordinates in [0, 2q), (qx, qy) in [0, 2q) and not the
 // identity (0, 0).
-__device__ __forceinline__ Pt<E1> lz_madd(const Pt<E1>& p, const E1& qx, const E1& qy) {
-  E1 t0 = fq_lz_mul(p.x, qx);
-  E1 t1 = fq_lz_mul(p.y, qy);
-  E1 ta = fq_lz_mul(fq_lz_add(p.x, p.y), fq_lz_add(qx, qy));
-  E1 mxz = fq_lz_mul(qx, p.z);
-  E1 myz = fq_lz_mul(qy, p.z);
-  E1 u = fq_lz_mul9(p.z);
-  E1 t3 = fq_lz_sub(ta, fq_lz_add(t0, t1));
-  E1 t4 = fq_lz_add(mxz, p.x);
-  E1 t5 = fq_lz_add(myz, p.y);
-  E1 z3 = fq_lz_add(t1, u);
-  E1 x3m = fq_lz_sub(t1, u);
-  t0 = fq_lz_add(fq_lz_add(t0, t0), t0);
-  E1 y3m = fq_lz_mul9(t4);
-  Pt<E1> r;
-  r.x = fq_lz_sub(fq_lz_mul(t3, x3m), fq_lz_mul(t5, y3m));
-  r.y = fq_lz_add(fq_lz_mul(x3m, z3), fq_lz_mul(t0, y3m));
-  r.z = fq_lz_add(fq_lz_mul(t5, z3), fq_lz_mul(t3, t0));
+template <class E>
+__device__ __forceinline__ Pt<E> lz_madd(const Pt<E>& p, const E& qx, const E& qy) {
+  E t0 = lz_mul(p.x, qx);
+  E t1 = lz_mul(p.y, qy);
+  E ta = lz_mul(lz_add(p.x, p.y), lz_add(qx, qy));
+  E mxz = lz_mul(qx, p.z);
+  E myz = lz_mul(qy, p.z);
+  E u = lz_mul_b3(p.z);
+  E t3 = lz_sub(ta, lz_add(t0, t1));
+  E t4 = lz_add(mxz, p.x);
+  E t5 = lz_add(myz, p.y);
+  E z3 = lz_add(t1, u);
+  E x3m = lz_sub(t1, u);
+  t0 = lz_add(lz_add(t0, t0), t0);
+  E y3m = lz_mul_b3(t4);
+  Pt<E> r;
+  r.x = lz_sub(lz_mul(t3, x3m), lz_mul(t5, y3m));
+  r.y = lz_add(lz_mul(x3m, z3), lz_mul(t0, y3m));
+  r.z = lz_add(lz_mul(t5, z3), lz_mul(t3, t0));
   return r;
+}
+
+// RCB15 algorithm 7 (jcurve.padd, curve.cuh p_add_inl) in lazy arithmetic:
+// p + q, every coordinate in [0, 2q)
+template <class E>
+__device__ __forceinline__ Pt<E> lz_padd(const Pt<E>& p, const Pt<E>& q) {
+  E t0 = lz_mul(p.x, q.x);
+  E t1 = lz_mul(p.y, q.y);
+  E t2 = lz_mul(p.z, q.z);
+  E ta = lz_mul(lz_add(p.x, p.y), lz_add(q.x, q.y));
+  E tb = lz_mul(lz_add(p.y, p.z), lz_add(q.y, q.z));
+  E tc = lz_mul(lz_add(p.x, p.z), lz_add(q.x, q.z));
+  E t3 = lz_sub(ta, lz_add(t0, t1));
+  E t4 = lz_sub(tb, lz_add(t1, t2));
+  E t5 = lz_sub(tc, lz_add(t0, t2));
+  E u = lz_mul_b3(t2);
+  E y3m = lz_mul_b3(t5);
+  E z3 = lz_add(t1, u);
+  E x3m = lz_sub(t1, u);
+  t0 = lz_add(lz_add(t0, t0), t0);
+  Pt<E> r;
+  r.x = lz_sub(lz_mul(t3, x3m), lz_mul(t4, y3m));
+  r.y = lz_add(lz_mul(x3m, z3), lz_mul(t0, y3m));
+  r.z = lz_add(lz_mul(t4, z3), lz_mul(t3, t0));
+  return r;
+}
+
+// every coordinate canonical, for the store
+template <class E>
+__device__ __forceinline__ Pt<E> lz_canon(const Pt<E>& p) {
+  return {lz_canon(p.x), lz_canon(p.y), lz_canon(p.z)};
 }
 
 // 16 bytes global -> shared by cp.async; built for the host (the tests), a

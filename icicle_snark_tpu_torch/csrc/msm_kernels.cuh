@@ -42,7 +42,11 @@
 //   * 16 or 32 scattered 32-byte sectors per limb-major point: points come
 //     as lane-major records (64 bytes G1, 128 G2), read as 16-byte vectors;
 //   * a __noinline__ mixed add whose 24/48-word operands went through the
-//     call stack: p_madd and p_add_inl are force-inlined into the loop.
+//     call stack: the additions are force-inlined into the loop;
+//   * canonical Fq arithmetic, a conditional subtraction after every
+//     product, sum and difference and 9x as four doublings: BN254's loops
+//     keep their coordinates lazy in [0, 2q) (fq_lazy.cuh, fq2_lazy.cuh),
+//     canonical at the store.
 //
 // ---------------------------------------------------------------- reduce
 //
@@ -71,7 +75,8 @@
 // adds of the walk, 2 log2(nt) tree steps, log2(s) doublings and one add. No thread walks the n_seg partials of a row and no segment is
 // scaled by its offset, as the old kernel's 14-15-bit double-and-add did.
 // The order of additions is fixed: the plain version mirrors it word for
-// word.
+// word. The segments stage adds in the lazy layer for BN254, as level 0 of
+// the accumulate does; the rows stage keeps curve.cuh's canonical formulas.
 //
 // Bound: operations, 2(H - 1) complete adds per row (the running-sum
 // triangle over all H buckets). This design does 2(H - n_seg) adds in the
@@ -80,9 +85,53 @@
 // (3, C, N, rows*H); S and T (3, C, N, rows*n_seg); output (3, C, N, G, W),
 // row w*G + g at g*W + w, like JAX's stacked window sums.
 #pragma once
-#include "curve.cuh"
+#include <type_traits>
+#include "fq2_lazy.cuh"
 
-#define ACC_THREADS 128
+// BN254's G1 and G2 run level 0 of the accumulate and the segments stage in
+// the lazy layer (fq_lazy.cuh, fq2_lazy.cuh): every coordinate in [0, 2q)
+// between additions and canonical at the store, so the words stored equal
+// those of curve.cuh's formulas. So does G1 in the fold levels; G2's fold
+// levels keep curve.cuh's canonical add, since nvcc 12.8's cicc crashes
+// (segmentation fault) on the lazy G2 add in that loop, though the same add
+// builds in the segments stage. The other curves' point types (K13) keep
+// their canonical formulas (curve_n.cuh).
+template <class E>
+inline constexpr bool k4_lazy = std::is_same_v<E, E1> || std::is_same_v<E, E2>;
+template <class E, bool AFF>
+inline constexpr bool k4_lazy_acc = k4_lazy<E> && (AFF || !std::is_same_v<E, E2>);
+
+// p + (x, y), (x, y) a canonical record; (0, 0) is the identity
+template <bool LAZY, class E>
+__device__ __forceinline__ Pt<E> k4_madd(const Pt<E>& p, const E& x, const E& y) {
+  if constexpr (LAZY) {
+    if (e_is_zero(x) && e_is_zero(y)) return p;
+    return lz_madd(p, x, y);
+  } else {
+    return p_madd(p, x, y);
+  }
+}
+
+template <bool LAZY, class E>
+__device__ __forceinline__ Pt<E> k4_add(const Pt<E>& p, const Pt<E>& q) {
+  if constexpr (LAZY)
+    return lz_padd(p, q);
+  else
+    return p_add_inl(p, q);
+}
+
+template <bool LAZY, class E>
+__device__ __forceinline__ void k4_store(u32* base, long long n, long long i, const Pt<E>& p) {
+  if constexpr (LAZY)
+    p_store(base, n, i, lz_canon(p));
+  else
+    p_store(base, n, i, p);
+}
+
+// threads of an accumulate block, by instantiation (the sweep of PERF.md)
+template <class E, bool AFF> struct AccThreads { static constexpr int N = 128; };
+template <> struct AccThreads<E1, true> { static constexpr int N = 512; };
+template <> struct AccThreads<E1, false> { static constexpr int N = 512; };
 
 template <class E>
 __device__ __forceinline__ void load_signed(E& x, E& y, const u32* __restrict__ rec,
@@ -98,11 +147,12 @@ __device__ __forceinline__ void load_signed(E& x, E& y, const u32* __restrict__ 
 // previous level's (3, coords..., n_src) partial sums, start[i] an index into
 // them. Item i adds len[i] inputs from start[i] on and writes out[i].
 template <class E, bool AFF>
-__global__ void __launch_bounds__(ACC_THREADS)
+__global__ void __launch_bounds__((AccThreads<E, AFF>::N))
     msm_accumulate_kernel(u32* __restrict__ out, const u32* __restrict__ src, long long n_src,
                           const int* __restrict__ order, const unsigned char* __restrict__ negs,
                           const long long* __restrict__ start, const int* __restrict__ len,
                           long long n_items) {
+  constexpr bool lazy = k4_lazy_acc<E, AFF>;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_items) return;
   long long st = start[i];
@@ -119,30 +169,17 @@ __global__ void __launch_bounds__(ACC_THREADS)
       }
       for (int r = 1; r < ln; r++) {
         load_signed(x, y, src, order, negs, st + r);
-        acc = p_madd(acc, x, y);
+        acc = k4_madd<lazy>(acc, x, y);
       }
     } else {
       acc = p_load<E>(src, n_src, st);
-      for (int r = 1; r < ln; r++) acc = p_add_inl(acc, p_load<E>(src, n_src, st + r));
+      for (int r = 1; r < ln; r++) acc = k4_add<lazy>(acc, p_load<E>(src, n_src, st + r));
     }
   }
-  p_store(out, n_items, i, acc);
-}
-
-template <class E, bool AFF>
-static void launch_accumulate(void* out, const void* src, long long n_src, const void* order,
-                              const void* negs, const void* start, const void* len,
-                              long long n_items, cudaStream_t s) {
-  long long blocks = (n_items + ACC_THREADS - 1) / ACC_THREADS;
-  msm_accumulate_kernel<E, AFF><<<blocks, ACC_THREADS, 0, s>>>(
-      (u32*)out, (const u32*)src, n_src, (const int*)order, (const unsigned char*)negs,
-      (const long long*)start, (const int*)len, n_items);
+  k4_store<lazy>(out, n_items, i, acc);
 }
 
 #define SEG_THREADS 128
-// most threads of a rows block (ops/msm.py REDUCE_BLOCK): 256 x 255 registers
-// fill an SM's register file
-#define ROWS_MAX_THREADS 256
 
 template <class E>
 __global__ void __launch_bounds__(SEG_THREADS)
@@ -161,16 +198,34 @@ __global__ void __launch_bounds__(SEG_THREADS)
   // of the inlined add, so the kernel holds one copy of it
   for (long long m = 0; m < 2 * (seg - 1); m++) {
     bool to_tri = m & 1;
-    Pt<E> r = p_add_inl(to_tri ? tri : run,
-                        to_tri ? run : p_load<E>(buckets, nb, base + seg - 2 - m / 2));
+    Pt<E> r = k4_add<k4_lazy<E>>(to_tri ? tri : run,
+                                 to_tri ? run : p_load<E>(buckets, nb, base + seg - 2 - m / 2));
     if (to_tri)
       tri = r;
     else
       run = r;
   }
-  p_store(seg_s, rows * n_seg, t, run);
-  p_store(seg_t, rows * n_seg, t, tri);
+  k4_store<k4_lazy<E>>(seg_s, rows * n_seg, t, run);
+  k4_store<k4_lazy<E>>(seg_t, rows * n_seg, t, tri);
 }
+
+// The launches and the rows stage; a host build (the tests) calls the two
+// kernels above as functions, one thread at a time.
+#ifdef __CUDACC__
+template <class E, bool AFF>
+static void launch_accumulate(void* out, const void* src, long long n_src, const void* order,
+                              const void* negs, const void* start, const void* len,
+                              long long n_items, cudaStream_t s) {
+  constexpr int nt = AccThreads<E, AFF>::N;
+  long long blocks = (n_items + nt - 1) / nt;
+  msm_accumulate_kernel<E, AFF><<<blocks, nt, 0, s>>>(
+      (u32*)out, (const u32*)src, n_src, (const int*)order, (const unsigned char*)negs,
+      (const long long*)start, (const int*)len, n_items);
+}
+
+// most threads of a rows block (ops/msm.py REDUCE_BLOCK): 256 x 255 registers
+// fill an SM's register file
+#define ROWS_MAX_THREADS 256
 
 // sum over the block of every thread's v, in a fixed tree order; the result
 // is valid in thread 0. sh holds blockDim.x points.
@@ -256,4 +311,4 @@ static int launch_reduce(int stage, void* out, void* seg_s, void* seg_t, const v
   }
   return (int)cudaGetLastError();
 }
-
+#endif  // __CUDACC__

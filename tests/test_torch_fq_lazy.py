@@ -1,22 +1,27 @@
-"""A word-by-word model, on Python integers, of csrc/fq_lazy.cuh: the lazy
-Fq arithmetic of K11's G1 window loop (every value in [0, 2q), canonical
-only at the store). Each step repeats the header's 32-bit words and carries
-and asserts that nothing it drops is nonzero (the product's ninth word, the
-sum's carry, the 9x reduction's ninth word). Checked: every step's bound and
-residue on random operands and on operands at 2q - 1; the 9x reduction for
-every x next to each quotient step and next to 0 and 2q; the canonical
-store; and the whole mixed add, run on the model from lazy coordinates,
-against the same formula in canonical arithmetic (jcurve.pmadd on the
+"""A word-by-word model, on Python integers, of csrc/fq_lazy.cuh and
+csrc/fq2_lazy.cuh: the lazy Fq and Fq2 arithmetic of K11's G1 window loop
+and of K4's BN254 loops (every value in [0, 2q), canonical only at the
+store). Each Fq step repeats the header's 32-bit words and carries and
+asserts that nothing it drops is nonzero (the product's ninth word, the
+sum's carry, the 9x reduction's ninth word). Checked: every step's bound
+and residue on random operands and on operands at 2q - 1, in Fq and in
+Fq2; the 9x reduction for every x next to each quotient step and next to 0
+and 2q; the canonical store; and the mixed add (G1, G2) and the complete
+add (G1, G2), run on the model from lazy coordinates, against the same
+formulas in canonical arithmetic (jcurve.pmadd and jcurve.padd on the
 plain ops)."""
 
 import random
+from types import SimpleNamespace
 
 import numpy as np
+import pytest
 import torch
 
 from icicle_snark_tpu_torch.curve import jcurve as jc
 from icicle_snark_tpu_torch.fields import limbs as lb
-from icicle_snark_tpu_torch.refmath.field import Q
+from icicle_snark_tpu_torch.refmath.curve import B_G2
+from icicle_snark_tpu_torch.refmath.field import Q, fq_to_mont
 
 # Several test workers share the machine's cores: one intra-op thread each.
 torch.set_num_threads(1)
@@ -133,27 +138,56 @@ def test_mul9_reduction_at_every_step():
     assert seen > 20000
 
 
-def _madd_model(p, qx, qy):
+# the lazy layer's operations at E1 (fq_lazy.cuh lz_mul, lz_add, ...)
+LAZY_FQ = SimpleNamespace(mul=lz_mul, add=lz_add, sub=lz_sub, mul_b3=lz_mul9, canon=lz_canon,
+                          bounded=lambda v: 0 <= v < 2 * Q)
+
+
+def _madd_model(p, qx, qy, f=LAZY_FQ):
     """lz_madd (RCB15 algorithm 8) on the model, p's coordinates lazy."""
     px, py, pz = p
-    t0 = lz_mul(px, qx)
-    t1 = lz_mul(py, qy)
-    ta = lz_mul(lz_add(px, py), lz_add(qx, qy))
-    mxz = lz_mul(qx, pz)
-    myz = lz_mul(qy, pz)
-    u = lz_mul9(pz)
-    t3 = lz_sub(ta, lz_add(t0, t1))
-    t4 = lz_add(mxz, px)
-    t5 = lz_add(myz, py)
-    z3 = lz_add(t1, u)
-    x3m = lz_sub(t1, u)
-    t0 = lz_add(lz_add(t0, t0), t0)
-    y3m = lz_mul9(t4)
-    out = (lz_sub(lz_mul(t3, x3m), lz_mul(t5, y3m)),
-           lz_add(lz_mul(x3m, z3), lz_mul(t0, y3m)),
-           lz_add(lz_mul(t5, z3), lz_mul(t3, t0)))
-    for v in out:
-        assert 0 <= v < 2 * Q
+    t0 = f.mul(px, qx)
+    t1 = f.mul(py, qy)
+    ta = f.mul(f.add(px, py), f.add(qx, qy))
+    mxz = f.mul(qx, pz)
+    myz = f.mul(qy, pz)
+    u = f.mul_b3(pz)
+    t3 = f.sub(ta, f.add(t0, t1))
+    t4 = f.add(mxz, px)
+    t5 = f.add(myz, py)
+    z3 = f.add(t1, u)
+    x3m = f.sub(t1, u)
+    t0 = f.add(f.add(t0, t0), t0)
+    y3m = f.mul_b3(t4)
+    out = (f.sub(f.mul(t3, x3m), f.mul(t5, y3m)),
+           f.add(f.mul(x3m, z3), f.mul(t0, y3m)),
+           f.add(f.mul(t5, z3), f.mul(t3, t0)))
+    assert all(f.bounded(v) for v in out)
+    return out
+
+
+def _padd_model(p, q, f=LAZY_FQ):
+    """lz_padd (RCB15 algorithm 7) on the model, every coordinate lazy."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    t0 = f.mul(x1, x2)
+    t1 = f.mul(y1, y2)
+    t2 = f.mul(z1, z2)
+    ta = f.mul(f.add(x1, y1), f.add(x2, y2))
+    tb = f.mul(f.add(y1, z1), f.add(y2, z2))
+    tc = f.mul(f.add(x1, z1), f.add(x2, z2))
+    t3 = f.sub(ta, f.add(t0, t1))
+    t4 = f.sub(tb, f.add(t1, t2))
+    t5 = f.sub(tc, f.add(t0, t2))
+    u = f.mul_b3(t2)
+    y3m = f.mul_b3(t5)
+    z3 = f.add(t1, u)
+    x3m = f.sub(t1, u)
+    t0 = f.add(f.add(t0, t0), t0)
+    out = (f.sub(f.mul(t3, x3m), f.mul(t4, y3m)),
+           f.add(f.mul(x3m, z3), f.mul(t0, y3m)),
+           f.add(f.mul(t4, z3), f.mul(t3, t0)))
+    assert all(f.bounded(v) for v in out)
     return out
 
 
@@ -178,4 +212,138 @@ def test_lazy_mixed_add_equals_canonical_formula():
         model = [_madd_model(p, a, b) for p, (a, b) in zip(model, step)]
     want = [lb.limbs_to_ints(t) for t in acc]
     got = [[lz_canon(p[c]) for p in model] for c in range(3)]
+    assert got == want
+
+
+# ---------------------------------------------------------------- Fq2 (fq2_lazy.cuh)
+
+# b3 = 3 b_G2 in Montgomery form (curve.cuh e_mul_b3, fq2_lazy.cuh fq2_b3)
+B3 = (fq_to_mont(3 * B_G2[0] % Q), fq_to_mont(3 * B_G2[1] % Q))
+
+
+def fq2_mul(a, b):
+    """fq2_lz_mul: Karatsuba on the lazy Fq steps, each checking its bound."""
+    t0, t1 = lz_mul(a[0], b[0]), lz_mul(a[1], b[1])
+    t2 = lz_mul(lz_add(a[0], a[1]), lz_add(b[0], b[1]))
+    return lz_sub(t0, t1), lz_sub(t2, lz_add(t0, t1))
+
+
+def fq2_mul_b3(x):
+    return fq2_mul(B3, x)
+
+
+# the lazy layer's operations at E2 (fq2_lazy.cuh), on (c0, c1) pairs
+LAZY_FQ2 = SimpleNamespace(
+    mul=fq2_mul, mul_b3=fq2_mul_b3,
+    add=lambda a, b: (lz_add(a[0], b[0]), lz_add(a[1], b[1])),
+    sub=lambda a, b: (lz_sub(a[0], b[0]), lz_sub(a[1], b[1])),
+    canon=lambda a: (lz_canon(a[0]), lz_canon(a[1])),
+    bounded=lambda v: all(0 <= c < 2 * Q for c in v))
+
+
+def _fq2_residue(a, b):
+    """(a0 + a1 u)(b0 + b1 u) R^-1 mod q, u^2 = -1."""
+    return ((a[0] * b[0] - a[1] * b[1]) * RINV % Q, (a[0] * b[1] + a[1] * b[0]) * RINV % Q)
+
+
+def _check2(value, want):
+    assert LAZY_FQ2.bounded(value)
+    assert (value[0] % Q, value[1] % Q) == (want[0] % Q, want[1] % Q)
+
+
+def test_fq2_lazy_steps_on_edges_and_random():
+    """The Fq2 product, sum, difference and b3 product: components below
+    2q with the canonical residues, on operands at 0, q - 1, q, 2q - 1 and
+    random ones (every Fq step inside checks its own bound)."""
+    prng = random.Random(30)
+    edges = [0, 1, Q - 1, Q, 2 * Q - 2, 2 * Q - 1]
+    vals = [(a, b) for a in edges for b in edges]
+    vals += [(prng.randrange(2 * Q), prng.randrange(2 * Q)) for _ in range(150)]
+    assert B3[0] < Q and B3[1] < Q
+    for a in vals:
+        for b in vals[:12] + [prng.choice(vals) for _ in range(6)]:
+            _check2(fq2_mul(a, b), _fq2_residue(a, b))
+            _check2(LAZY_FQ2.add(a, b), (a[0] + b[0], a[1] + b[1]))
+            _check2(LAZY_FQ2.sub(a, b), (a[0] - b[0], a[1] - b[1]))
+        _check2(fq2_mul_b3(a), _fq2_residue(B3, a))
+        assert LAZY_FQ2.canon(a) == (a[0] % Q, a[1] % Q)
+
+
+def _lazy_rep(v, rng):
+    """v < q as the lazy layer may hold it: v or v + q."""
+    return v + Q if rng.random() < 0.5 else v
+
+
+def _g2_limbs(pairs):
+    return torch.stack([lb.ints_to_limbs([p[0] for p in pairs]),
+                        lb.ints_to_limbs([p[1] for p in pairs])])
+
+
+def _coord_ints(t, g2):
+    if g2:
+        return list(zip(lb.limbs_to_ints(t[0]), lb.limbs_to_ints(t[1])))
+    return lb.limbs_to_ints(t)
+
+
+def _random_elems(rng, g2, n):
+    one = lambda: rng.randrange(Q)  # noqa: E731
+    return [(one(), one()) if g2 else one() for _ in range(n)]
+
+
+def _as_limbs(vals, g2):
+    return _g2_limbs(vals) if g2 else lb.ints_to_limbs(vals)
+
+
+def _lazy_elem(v, rng, g2):
+    return (_lazy_rep(v[0], rng), _lazy_rep(v[1], rng)) if g2 else _lazy_rep(v, rng)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_lazy_complete_add_equals_canonical_formula(g2):
+    """16 lanes: a chain of 6 complete adds (RCB15 algorithm 7) on the
+    model, from lazy coordinates (each canonical input given as v or
+    v + q) and with the lazy words fed on, made canonical at the end,
+    equals the same chain of jcurve.padd on the plain ops word for word.
+    Lane 0 adds the identity (0, one, 0) every step, lane 1 adds its own
+    running sum's canonical words (a doubling through the add)."""
+    rng = random.Random(31 + g2)
+    ops, f = (jc.G2_PLAIN, LAZY_FQ2) if g2 else (jc.G1_PLAIN, LAZY_FQ)
+    lanes, steps = 16, 6
+    one = (R % Q, 0) if g2 else R % Q
+    zero = (0, 0) if g2 else 0
+    acc_vals = [_random_elems(rng, g2, lanes) for _ in range(3)]
+    acc = tuple(_as_limbs(c, g2) for c in acc_vals)
+    model = [tuple(_lazy_elem(acc_vals[c][i], rng, g2) for c in range(3)) for i in range(lanes)]
+    for _ in range(steps):
+        add = [_random_elems(rng, g2, lanes) for _ in range(3)]
+        for c, v in enumerate((zero, one, zero)):
+            add[c][0] = v
+        now = [_coord_ints(t, g2) for t in acc]
+        for c in range(3):
+            add[c][1] = now[c][1]
+        acc = jc.padd(ops, acc, tuple(_as_limbs(c, g2) for c in add))
+        model = [_padd_model(p, tuple(_lazy_elem(add[c][i], rng, g2) for c in range(3)), f)
+                 for i, p in enumerate(model)]
+    want = [_coord_ints(t, g2) for t in acc]
+    got = [[f.canon(p[c]) for p in model] for c in range(3)]
+    assert got == want
+
+
+def test_lazy_g2_mixed_add_equals_canonical_formula():
+    """The G2 mixed add (RCB15 algorithm 8) over the lazy Fq2 layer: a chain
+    of 6 on 16 lanes from the identity, the affine operands canonical as K4
+    loads them in half the lanes and lazy (v or v + q) in the others, equals
+    jcurve.pmadd on the plain ops word for word once made canonical."""
+    rng = random.Random(33)
+    lanes, steps = 16, 6
+    acc = jc.identity(jc.G2_PLAIN, lanes, "cpu")
+    model = [((0, 0), (R % Q, 0), (0, 0))] * lanes
+    for _ in range(steps):
+        qx, qy = _random_elems(rng, True, lanes), _random_elems(rng, True, lanes)
+        acc = jc.pmadd(jc.G2_PLAIN, acc, (_g2_limbs(qx), _g2_limbs(qy)))
+        model = [_madd_model(p, *((a, b) if i % 2 else (_lazy_elem(a, rng, True),
+                                                         _lazy_elem(b, rng, True))), f=LAZY_FQ2)
+                 for i, (p, a, b) in enumerate(zip(model, qx, qy))]
+    want = [_coord_ints(t, True) for t in acc]
+    got = [[LAZY_FQ2.canon(p[c]) for p in model] for c in range(3)]
     assert got == want
