@@ -3455,6 +3455,14 @@ def time_r1cs_ntt(paths, cm, dev) -> dict:
     return out
 
 
+def key_points(records, g2: bool) -> tuple:
+    """The affine (x, y) limb-major points of a cache's K4 records (a
+    cache of factor 1 keeps its bases as records alone)."""
+    from icicle_snark_tpu_torch.ops import msm
+
+    return tuple(t.contiguous() for t in msm._record_coords(records, g2))
+
+
 def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict:
     """The prove's own G2 and G1 MSMs (this witness's scalars) at the given
     (c, f) plans (c None: `choose_c` for that f): window sums only, CUDA
@@ -3473,18 +3481,19 @@ def time_msm_plans(cache, paths, dev, g2_plans, g1_plans, reps: int = 3) -> dict
     g1_scalars = torch.cat([witness, witness, witness[:, npub + 1:], h], dim=-1)
     n2 = witness.shape[-1]
     out = {}
+    points_b2 = key_points(cache.b2_records, True)
     for c, f in g2_plans:
         c = c or msm.choose_c(n2, 1, f)
-        pre = msm.point_records(msm.precompute_bases(cache.points_b2, jc.G2, c, f))
+        pre = msm.point_records(msm.precompute_bases(points_b2, jc.G2, c, f))
         out[f"g2 c{c} f{f}"] = cuda_time(
             lambda: msm.msm_window_sums(witness, [n2], pre, c, f), reps)
         del pre
-    groups = (cache.points_a, cache.points_b1, cache.points_c, cache.points_h)
+    del points_b2
+    # the copies of a base sit beside it, so the groups precompute as one
+    points_g1 = key_points(cache.g1_records, False)
     for c, f in g1_plans:
         c = c or msm.choose_c(sum(cache.g1_sizes), 4, f)
-        pre = msm.point_records(tuple(
-            torch.cat([msm.precompute_bases(g, jc.G1, c, f)[i] for g in groups], dim=-1)
-            for i in range(2)))
+        pre = msm.point_records(msm.precompute_bases(points_g1, jc.G1, c, f))
         out[f"g1 c{c} f{f}"] = cuda_time(
             lambda: msm.msm_window_sums(g1_scalars, cache.g1_sizes, pre, c, f), reps)
         del pre
@@ -3661,7 +3670,8 @@ def family_circuit(name, build, fixture_dir, dev, counts_log, failures, profile=
     out["cold_cache_s"], out["cold_cache_phases"] = time.perf_counter() - t0, timer.phases
     hdr = cache.header
     out["shape"] = {"n_vars": hdr.n_vars, "n_public": hdr.n_public, "domain_log": hdr.power,
-                    "g1_lanes": sum(cache.g1_sizes), "g2_lanes": cache.points_b2[0].shape[-1],
+                    "g1_lanes": sum(cache.g1_sizes),
+                    "g2_lanes": cache.b2_records.shape[0] // cache.msm_pre2,
                     "c": cache.msm_c, "c2": cache.msm_c2}
     log(f"[{tag}] built in {out['build_s']:.1f} s ({out['constraints']} constraints, witness "
         f"checked in {out['check_witness_s']:.1f} s); cold cache {out['cold_cache_s']:.3f} s, "
@@ -4504,8 +4514,8 @@ def main() -> int:
     cold_cache_s = time.perf_counter() - t0
     log(f"[cache] cold cache {cold_cache_s:.3f} s: n_vars {cache.header.n_vars}, domain "
         f"2^{cache.header.power}, G1 lanes {sum(cache.g1_sizes)} in {len(cache.g1_sizes)} groups, "
-        f"G2 lanes {cache.points_b2[0].shape[-1]}, window size c = {cache.msm_c} (G1), "
-        f"{cache.msm_c2} (G2)")
+        f"G2 lanes {cache.b2_records.shape[0] // cache.msm_pre2}, window size c = "
+        f"{cache.msm_c} (G1), {cache.msm_c2} (G2)")
     if args.bits_only:
         log("[bits] " + json.dumps(prove_bits(paths, cm, dev, cache.header.n_public)))
         return 0
@@ -4534,8 +4544,9 @@ def main() -> int:
         ("ntt_stage or ntt_radix", lambda: check_ntt(rep, rng, cache.domain, dev, path_counts)),
         ("msm g1", lambda: check_msm(rep, rng, cache, dev, False)),
         ("msm g2", lambda: check_msm(rep, rng, cache, dev, True)),
-        ("precompute", lambda: check_precompute(rep, rng, (cache.points_a, cache.points_b2),
-                                                dev)),
+        ("precompute", lambda: check_precompute(
+            rep, rng, (key_points(cache.g1_records[:cache.g1_sizes[0]], False),
+                       key_points(cache.b2_records, True)), dev)),
         ("probe_chain", lambda: check_probe(rep, rng, dev)),
         ("witness_limbs", lambda: check_witness_limbs(rep, rng, dev)),
     ]
@@ -4602,7 +4613,8 @@ def main() -> int:
     cache_big = cm_big.get(big["zkey"])
     torch.cuda.synchronize()
     big_cold_s = time.perf_counter() - t0
-    g1_lanes, g2_lanes = sum(cache_big.g1_sizes), cache_big.points_b2[0].shape[-1]
+    g1_lanes = sum(cache_big.g1_sizes)
+    g2_lanes = cache_big.b2_records.shape[0] // cache_big.msm_pre2
     log(f"[large] cold cache {big_cold_s:.3f} s: n_vars {cache_big.header.n_vars}, domain "
         f"2^{cache_big.header.power}, G1 lanes {g1_lanes}, G2 lanes {g2_lanes}, c = "
         f"{cache_big.msm_c} (G1), {cache_big.msm_c2} (G2), MSM_MAX_LANES {msm_ops.MSM_MAX_LANES}, "

@@ -22,18 +22,18 @@ are the lane-major records of `point_records`.
 
 Two variants of the JAX package's large-circuit path ride on the same
 kernels:
-  * sliced (`msm_windows_sliced`): past `MSM_MAX_LANES` point lanes the
-    concatenated lanes are cut into fixed-width slices, each slice runs
-    steps 1-4 with per-lane group ids, and `sum_windows` (K6) adds the
-    slices' window sums in one launch;
+  * sliced (`msm_windows_sliced`): past the lane cap the concatenated
+    lanes are cut into fixed-width slices, each slice runs steps 1-4 with
+    per-lane group ids, and `sum_windows` (K6) adds the slices' window
+    sums in one launch;
   * precomputed bases (`precompute_bases`, K7): with factor f the key holds
     f affine copies 2^(c*wp*m) * P of every base, interleaved at lane
     i*f + m, and the W = ceil(256/c) digit windows merge into
     wp = ceil(W/f) windows over f times the lanes.
 
-The op surface (`msm_g1`, `msm_g1_many`, `msm_g2`, with config.MSMConfig)
-runs the same pipeline on any scalars below 2^254 and returns host points,
-as icicle_snark_tpu/ops/msm.py does.
+Every BN254 MSM (the proves, and the op surface `msm_g1`, `msm_g1_many`,
+`msm_g2` with config.MSMConfig) is routed by `window_sums`, the one choice
+of in core or sliced, and combined on the host by `host_points` (step 5).
 
 The other curves (curves/device.py) run steps 1-4 over their own point
 types: a `PointGroup` names the field-op tables, the coordinate shape and
@@ -89,7 +89,7 @@ PLAIN_CHUNK = 1 << 21
 # record (64 bytes G1, 128 G2): 1 KiB per lane covers both. 2^25 lanes are
 # then 32 GiB of an 80 GB card, which leaves room for the proving key, the
 # NTT batch and the allocator's slack. The G2 MSM takes half the lanes, as
-# in the JAX package.
+# in the JAX package (`window_sums`).
 MSM_MAX_LANES = 1 << 25
 # Precompute factor of the default plan (G1, G2). Measured on an H100
 # (PERF.md), factor 2 took 3 to 7 % off the window sums at the same
@@ -781,6 +781,21 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_
     return sum_windows(torch.stack(parts))
 
 
+def window_sums(scalars: torch.Tensor, group_sizes, records, c: int, precompute: int = 1,
+                max_lanes: int | None = None):
+    """BN254 window sums, in core (`msm_window_sums`) up to the cap on
+    point lanes and sliced (`msm_windows_sliced`) past it: the cap is
+    `max_lanes`, else MSM_MAX_LANES (read at the call), halved for G2's
+    records (32 words a record, twice G1's bytes). Arguments and result as
+    for `msm_window_sums`."""
+    cap = max_lanes or MSM_MAX_LANES
+    if records.shape[-1] == 2 * BN254_G2.words:
+        cap = max(cap // 2, 1)
+    if scalars.shape[-1] * precompute > cap:
+        return msm_windows_sliced(scalars, group_sizes, records, c, cap, precompute)
+    return msm_window_sums(scalars, group_sizes, records, c, precompute)
+
+
 # ---------------------------------------------------------------- host side
 
 class HostCopy:
@@ -851,6 +866,13 @@ def horner_combine(window_points, c: int, g2: bool = False):
     return acc
 
 
+def host_points(wsums: np.ndarray, c: int, groups: int, g2: bool) -> list:
+    """Window sums already on the host, (3, coords..., G, W), -> the first
+    `groups` groups' host projective points (Horner on the host)."""
+    to_host = window_points_to_host_g2 if g2 else window_points_to_host_g1
+    return [horner_combine(to_host(wsums, g), c, g2=g2) for g in range(groups)]
+
+
 # ---------------------------------------------------------------- the op surface
 
 def _check_scalars(scalars: torch.Tensor):
@@ -861,15 +883,7 @@ def _check_scalars(scalars: torch.Tensor):
         raise InvalidArgument("msm: scalars must lie below 2^254")
 
 
-def _host_points(wsums, groups: int, c: int, g2: bool) -> list:
-    """Window sums (3, coords..., G, W) -> G host projective points (one
-    download, Horner on the host)."""
-    ws = wsums.cpu()
-    to_host = window_points_to_host_g2 if g2 else window_points_to_host_g1
-    return [horner_combine(to_host(ws, g), c, g2=g2) for g in range(groups)]
-
-
-def _msm(groups, c, g2: bool, pre: int, max_lanes: int):
+def _msm(groups, c, g2: bool, pre: int):
     for s, _ in groups:
         _check_scalars(s)
     sizes = [s.shape[-1] for s, _ in groups]
@@ -878,11 +892,8 @@ def _msm(groups, c, g2: bool, pre: int, max_lanes: int):
     if records.shape[0] != scalars.shape[-1] * pre:
         raise InvalidArgument(f"msm: {records.shape[0]} points for {scalars.shape[-1]} scalars "
                               f"and precompute factor {pre}")
-    if sum(sizes) * pre > max_lanes:
-        ws = msm_windows_sliced(scalars, sizes, records, c, max_lanes, pre)
-    else:
-        ws = msm_window_sums(scalars, sizes, records, c, pre)
-    return _host_points(ws, len(groups), c, g2)
+    ws = window_sums(scalars, sizes, records, c, pre)
+    return host_points(ws.cpu().numpy(), c, len(groups), g2)
 
 
 def _cfg_params(cfg, c, k):
@@ -903,7 +914,7 @@ def msm_g1_many(groups, c: int | None = None, k: int = 32) -> list:
     runs. Device work: K4 accumulate and reduce."""
     total = sum(s.shape[-1] for s, _ in groups)
     c = c or choose_c(min(total, MSM_MAX_LANES), groups=len(groups))
-    return _msm(groups, c, False, 1, MSM_MAX_LANES)
+    return _msm(groups, c, False, 1)
 
 
 def msm_g1(scalars, points_affine, c: int | None = None, k: int = 32, cfg=None):
@@ -912,11 +923,8 @@ def msm_g1(scalars, points_affine, c: int | None = None, k: int = 32, cfg=None):
     returns them for cfg.precompute_factor f > 1 (made with the same c).
     Returns a host projective point (ints, standard form)."""
     c, k, pre = _cfg_params(cfg, c, k)
-    if pre > 1:
-        n = scalars.shape[-1]
-        c = c or choose_c(min(n, MSM_MAX_LANES // pre), factor=pre)
-        return _msm([(scalars, points_affine)], c, False, pre, MSM_MAX_LANES)[0]
-    return msm_g1_many([(scalars, points_affine)], c=c, k=k)[0]
+    c = c or choose_c(min(scalars.shape[-1], MSM_MAX_LANES // pre), factor=pre)
+    return _msm([(scalars, points_affine)], c, False, pre)[0]
 
 
 def msm_g2(scalars, points_affine, c: int | None = None, k: int = 32, cfg=None):
@@ -924,7 +932,5 @@ def msm_g2(scalars, points_affine, c: int | None = None, k: int = 32, cfg=None):
     precomputed). The in-core pipeline takes half the G1 lanes, as in the
     JAX package; past that the sliced route runs."""
     c, k, pre = _cfg_params(cfg, c, k)
-    n = scalars.shape[-1]
-    max_lanes = MSM_MAX_LANES // 2
-    c = c or choose_c(min(n, max_lanes // pre), factor=pre)
-    return _msm([(scalars, points_affine)], c, True, pre, max_lanes)[0]
+    c = c or choose_c(min(scalars.shape[-1], MSM_MAX_LANES // 2 // pre), factor=pre)
+    return _msm([(scalars, points_affine)], c, True, pre)[0]

@@ -1,11 +1,11 @@
 """The MSM over a device mesh (kernels K4 and K6).
 
 The port's counterpart of icicle_snark_tpu/parallel/msm_shard.py: each
-shard runs the grouped Pippenger window sums (ops/msm.py, K4; sliced past
-max_lanes, the slices summed by one K6 launch) over its own lanes, and the
-window sums of all shards are gathered and summed by one K6 launch in the
-JAX package's tree order over the shards (`sum_windows`). The order is
-fixed, so the result is the same in every process.
+shard runs the grouped Pippenger window sums over its own lanes through
+ops/msm.py `window_sums` (K4; in core or sliced is that function's
+choice), and the window sums of all shards are gathered and summed by one
+K6 launch in the JAX package's tree order over the shards (`sum_windows`).
+The order is fixed, so the result is the same in every process.
 """
 
 from __future__ import annotations
@@ -25,17 +25,14 @@ def combine_windows(mesh, ws: list) -> torch.Tensor:
         return msm_ops.sum_windows(torch.stack(pts))
 
 
-def msm_window_sums_local(mesh, scalars: list, widths, records: list, c: int, max_lanes: int,
-                          pre: int = 1) -> torch.Tensor:
+def msm_window_sums_local(mesh, scalars: list, widths, records: list, c: int,
+                          max_lanes: int | None = None, pre: int = 1) -> torch.Tensor:
     """Grouped window sums over the mesh: per local shard, scalars (8,
     sum(widths)) and its K4 records (the lanes of each group concatenated,
-    `pre` rows a lane), in core or sliced past max_lanes point lanes; then
-    `combine_windows`. Returns (3, coords..., len(widths), W)."""
+    `pre` rows a lane) through `msm_ops.window_sums` (max_lanes None: its
+    default cap); then `combine_windows`. Returns (3, coords..., len(widths), W)."""
     ws = []
     for sc, rec, dev in zip(scalars, records, mesh.local_devices):
         with on_device(dev):
-            if sc.shape[-1] * pre > max_lanes:
-                ws.append(msm_ops.msm_windows_sliced(sc, widths, rec, c, max_lanes, pre))
-            else:
-                ws.append(msm_ops.msm_window_sums(sc, widths, rec, c, pre))
+            ws.append(msm_ops.window_sums(sc, widths, rec, c, pre, max_lanes))
     return combine_windows(mesh, ws)

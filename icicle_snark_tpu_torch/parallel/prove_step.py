@@ -25,13 +25,13 @@ with the single-device prove at any mesh size:
        keeps its chunk.
   B. The four G1 MSMs: each group padded to a multiple of D (scalars with
      zeros, points with the (0, 0) identity, both exact no-ops), each shard
-     runs K4 over its lanes of every group, sliced with K6 between slices
-     past max_lanes; the window sums of all shards are gathered and added
-     in a fixed pairwise order with K6 (parallel/msm_shard.py), so the
-     result does not depend on the mesh.
-  C. The G2 MSM, the same at half the slice width.
-Then Horner, randomization and serialization on the host, as the
-single-device prove does them (prover/pipeline.py).
+     runs K4 over its lanes of every group, in core or sliced as ops/msm.py
+     `window_sums` routes it; the window sums of all shards are gathered
+     and added in a fixed pairwise order with K6 (parallel/msm_shard.py),
+     so the result does not depend on the mesh.
+  C. The G2 MSM, the same.
+Then the single-device prove's host tail: ops/msm.py `host_points` (the
+combine), prover/pipeline.py's three randomisation steps, serialization.
 
 Sharded values are lists with one tensor per local shard (parallel/mesh.py).
 """
@@ -231,7 +231,7 @@ def run_sharded_prove(mesh, cache, witness: torch.Tensor, c: int | None = None,
     wit_c = globalize(mesh, _pad_last(witness[:, hdr.n_public + 1:], d), -1)
     ws_g1 = msm_g1_step(mesh, parts, wit, wit_c, h, c, max_lanes, cache.msm_pre)
     mark("phase_b")
-    ws_b2 = msm_g2_step(mesh, parts, wit, c2, max(max_lanes // 2, 1), cache.msm_pre2)
+    ws_b2 = msm_g2_step(mesh, parts, wit, c2, max_lanes, cache.msm_pre2)
     mark("phase_c")
     return h, ws_g1, ws_b2
 
@@ -239,8 +239,8 @@ def run_sharded_prove(mesh, cache, witness: torch.Tensor, c: int | None = None,
 def prove_multichip(mesh, wtns_path: str, cache, deterministic: bool = False, rng=None,
                     c: int | None = None, timer: pipeline.PhaseTimer | None = None):
     """The whole prove over the mesh: the sharded device phases, then
-    Horner, randomization and serialization on the host. Bit-exact with
-    the single-device prove at any mesh size. Returns (proof_dict,
+    the single-device prove's host combine and randomisation. Bit-exact
+    with the single-device prove at any mesh size. Returns (proof_dict,
     public_signals) in every process."""
     timer = timer or trace.NULL
     hdr = cache.header
@@ -249,12 +249,11 @@ def prove_multichip(mesh, wtns_path: str, cache, deterministic: bool = False, rn
     c, c2 = window_sizes(cache, mesh.size, msm_ops.MSM_MAX_LANES, c)
     _h, ws_g1, ws_b2 = run_sharded_prove(mesh, cache, witness, c=c, c2=c2, timer=timer)
 
-    ws1 = ws_g1.cpu().numpy()  # one download for all four G1 groups
-    pi_a, pi_b1, pi_c, pi_h = (
-        msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1, g), c) for g in range(4))
-    pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws_b2.cpu().numpy(), 0), c2,
-                                  g2=True)
+    g1 = msm_ops.host_points(ws_g1.cpu().numpy(), c, 4, g2=False)  # one download, four groups
+    (pi_b,) = msm_ops.host_points(ws_b2.cpu().numpy(), c2, 1, g2=True)
     timer.mark("horner")
     r, s = pipeline.draw_rs(deterministic, rng)
-    proof_points = pipeline.randomize(hdr, (pi_a, pi_b1, pi_b, pi_c, pi_h), r, s)
+    terms = pipeline.randomize_terms(hdr, r, s)
+    pi_a, pi_c = pipeline.randomize_g1(terms, r, s, *g1)
+    proof_points = (pi_a, pipeline.randomize_g2(terms, pi_b), pi_c)
     return pipeline.assemble_proof(hdr, wtns, proof_points, timer)

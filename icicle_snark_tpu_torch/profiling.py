@@ -251,7 +251,7 @@ def scaling_report(reps: int = 2, device="cuda", log_n: int = 14, c: int = 8) ->
                 for i in range(d)]
 
         def f():
-            return msm_window_sums_local(mesh, scs, [w], recs, c, msm_ops.MSM_MAX_LANES)
+            return msm_window_sums_local(mesh, scs, [w], recs, c)
 
         t = time_ms(f, reps, dev) / 1e3
         base = base or t

@@ -18,6 +18,9 @@ and the coefficient table, build the R1CS plan and the coset key powers.
     the f interleaved shifted copies of ops/msm.py `precompute_bases`
     (kernel K7), shifted for exactly that window size. The default plan is
     `msm_ops.choose_c_pre` (factor 1: the zkey's points as they are).
+  * The bases are resident once, as K4's lane-major records (`g1_records`,
+    `b2_records`): the limb-major points they are built from are not kept.
+    ops/msm.py routes every MSM over them and combines its results.
 """
 
 from __future__ import annotations
@@ -53,11 +56,12 @@ class R1CSPlan:
 class ZKeyCache:
     header: ZKeyHeader
     plan: R1CSPlan
-    points_a: tuple    # (x, y): each (8, n_vars * msm_pre) Montgomery affine
-    points_b1: tuple
-    points_b2: tuple   # (x, y): each (2, 8, n_vars * msm_pre2)
-    points_c: tuple
-    points_h: tuple
+    # the bases, only read to build the records below, not kept
+    points_a: InitVar[tuple]   # (x, y): each (8, n_vars * msm_pre) Montgomery affine
+    points_b1: InitVar[tuple]
+    points_b2: InitVar[tuple]  # (x, y): each (2, 8, n_vars * msm_pre2)
+    points_c: InitVar[tuple]
+    points_h: InitVar[tuple]
     # (8, n) Montgomery coset key powers, NATURAL order: only read to build
     # keys_br_scaled, not kept
     keys: InitVar[torch.Tensor]
@@ -78,20 +82,20 @@ class ZKeyCache:
     # a pipeline.PhaseTimer that takes the phases key_table and records, or None
     timer: InitVar = None
 
-    def __post_init__(self, keys, timer):
+    def __post_init__(self, points_a, points_b1, points_b2, points_c, points_h, keys, timer):
         dom = self.domain
         self.keys_br_scaled = lb.mont_mul(keys[:, dom.bitrev].contiguous(), dom.n_inv_mont, FR_SPEC)
         timer = timer or NULL
         timer.mark("key_table")
-        groups = (self.points_a, self.points_b1, self.points_c, self.points_h)
+        groups = (points_a, points_b1, points_c, points_h)
         self.g1_records = msm_ops.point_records(
             tuple(torch.cat([g[i] for g in groups], dim=-1) for i in range(2)))
-        self.b2_records = msm_ops.point_records(self.points_b2)
+        self.b2_records = msm_ops.point_records(points_b2)
         timer.mark("records")
         self.g1_sizes = [g[0].shape[-1] // self.msm_pre for g in groups]
         self.msm_c = self.msm_c or msm_ops.choose_c(sum(self.g1_sizes), 4, self.msm_pre)
         self.msm_c2 = self.msm_c2 or msm_ops.choose_c(
-            self.points_b2[0].shape[-1] // self.msm_pre2, 1, self.msm_pre2)
+            self.b2_records.shape[0] // self.msm_pre2, 1, self.msm_pre2)
 
 
 def build_r1cs_plan(slots: torch.Tensor, witness_idx: torch.Tensor,
@@ -125,10 +129,18 @@ def _g2(words, dev) -> tuple:
     return (x, y)
 
 
+def default_msm_plan(hdr) -> tuple:
+    """((c1, f1), (c2, f2)) of `msm_ops.choose_c_pre` for a key's lanes:
+    the grouped G1 MSM over A, B1, C and H, and the G2 MSM over B2."""
+    total_g1 = 3 * hdr.n_vars - (hdr.n_public + 1) + hdr.domain_size
+    return (msm_ops.choose_c_pre(total_g1, groups=4),
+            msm_ops.choose_c_pre(hdr.n_vars, groups=1, g2=True))
+
+
 def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None, timer=None) -> ZKeyCache:
     """Parse the zkey and build the device cache. `msm_plan` is
     ((c1, f1), (c2, f2)), window size and precompute factor of the grouped
-    G1 MSM and of the G2 MSM; None takes `msm_ops.choose_c_pre`. `timer`
+    G1 MSM and of the G2 MSM; None takes `default_msm_plan`. `timer`
     (a pipeline.PhaseTimer) takes the phases parse (the header and section 4
     decoded), upload (the point sections read from the memory-mapped file,
     transposed and copied to the device, with any precompute), plan_sort,
@@ -137,11 +149,7 @@ def load_zkey_cache(zkey_path: str, device="cuda", msm_plan=None, timer=None) ->
     zk = ZKeyFile(zkey_path)
     hdr = zk.header
     n = hdr.domain_size
-    if msm_plan is None:
-        total_g1 = 3 * hdr.n_vars - (hdr.n_public + 1) + n  # a + b1 + c + h lanes
-        msm_plan = (msm_ops.choose_c_pre(total_g1, groups=4),
-                    msm_ops.choose_c_pre(hdr.n_vars, groups=1, g2=True))
-    (c1, f1), (c2, f2) = msm_plan
+    (c1, f1), (c2, f2) = msm_plan or default_msm_plan(hdr)
 
     mark = (timer or NULL).mark
 

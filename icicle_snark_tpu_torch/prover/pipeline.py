@@ -13,7 +13,9 @@ byte-identical:
                        C = A*B, into the (3, 8, n) batch
   coset evaluation     bit-reversed INTT, key powers, NTT        K5 (K3, K1
   h values             (A*B - C) on the coset, times R^2         below 2^3)
-  5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2)        K4 (K6 sliced)
+  5 MSMs               grouped G1 (A, B1, C, H) + G2 (B2),       K4 (K6 sliced)
+                       routed and combined by ops/msm.py
+                       (`window_sums`, `host_points`)
   randomization        host projective ops (refmath), run while  -
                        the card works on the MSMs (below)
   serialization        decimal strings                           -
@@ -40,7 +42,7 @@ NTT from 2^18, to an out-of-core MSM past 2^21 lanes and, at 2^22, to h
 values staged one polynomial at a time with a forced fetch between the
 stages, because its one-shot graph did not fit its chip's memory. Here the
 NTT picks K5 from the domain size (ops/ntt.py), the MSM slices only past
-`msm_ops.MSM_MAX_LANES` point lanes, and `construct_r1cs` has NO staged
+ops/msm.py's lane cap (`window_sums`), and `construct_r1cs` has NO staged
 variant: at the largest supported domain, 2^22, the (3, 8, 2^22) int32
 batch is 3 * 8 * 4 * 2^22 = 403 MB, transformed in place, and the flow
 holds beside it h (134 MB), the bit-reversed key table and the four
@@ -205,36 +207,24 @@ def commit_and_randomize(witness: torch.Tensor, h_scalars: torch.Tensor, cache: 
     npub = hdr.n_public
     scalars = torch.cat([witness, witness, witness[:, npub + 1:], h_scalars], dim=-1)
     c, c2 = cache.msm_c, cache.msm_c2
-    pre, pre2 = cache.msm_pre, cache.msm_pre2
-    # past the cap on point lanes the MSM runs in slices (G2: half the cap,
-    # its points are twice the bytes)
-    cap, cap2 = msm_ops.MSM_MAX_LANES, msm_ops.MSM_MAX_LANES // 2
     with trace.span("msm.g1"):
-        if scalars.shape[-1] * pre > cap:
-            ws1 = msm_ops.msm_windows_sliced(scalars, cache.g1_sizes, cache.g1_records, c, cap,
-                                             pre)
-        else:
-            ws1 = msm_ops.msm_window_sums(scalars, cache.g1_sizes, cache.g1_records, c, pre)
-        ws1 = msm_ops.HostCopy(ws1)
+        ws1 = msm_ops.HostCopy(msm_ops.window_sums(scalars, cache.g1_sizes, cache.g1_records, c,
+                                                   cache.msm_pre))
     with trace.span("assemble.precompute", host=True):
         terms = randomize_terms(hdr, r, s)
-    n2 = witness.shape[-1]
     with trace.span("msm.g2"):
-        if n2 * pre2 > cap2:
-            ws2 = msm_ops.msm_windows_sliced(witness, [n2], cache.b2_records, c2, cap2, pre2)
-        else:
-            ws2 = msm_ops.msm_window_sums(witness, [n2], cache.b2_records, c2, pre2)
+        ws2 = msm_ops.window_sums(witness, [witness.shape[-1]], cache.b2_records, c2,
+                                  cache.msm_pre2)
     with trace.span("msm.to_host"):
         ws1 = ws1.wait()
     with trace.span("msm.combine", host=True):
-        g1 = [msm_ops.horner_combine(msm_ops.window_points_to_host_g1(ws1, g), c)
-              for g in range(4)]
+        g1 = msm_ops.host_points(ws1, c, 4, g2=False)
     with trace.span("assemble.randomize", host=True):
         pi_a, pi_c = randomize_g1(terms, r, s, *g1)
     with trace.span("msm.to_host"):
         ws2 = ws2.cpu().numpy()
     with trace.span("msm.combine", host=True):
-        pi_b = msm_ops.horner_combine(msm_ops.window_points_to_host_g2(ws2, 0), c2, g2=True)
+        (pi_b,) = msm_ops.host_points(ws2, c2, 1, g2=True)
     with trace.span("assemble.randomize", host=True):
         return pi_a, randomize_g2(terms, pi_b), pi_c
 
@@ -349,17 +339,6 @@ def randomize_g2(terms: RandomizeTerms, pi_b):
     """The randomisation's last part, after the G2 MSM: B = pi_b + beta2 +
     s delta2."""
     return cv.g2_add(pi_b, terms.b2)
-
-
-def randomize(hdr, commitments, r: int, s: int):
-    """(pi_a, pi_b, pi_c) from the five MSM results (pi_a, pi_b1, pi_b,
-    pi_c, pi_h) randomised with r and s in one go, for a prove that has
-    them all at once (the sharded one); the single-device prove runs the
-    three parts apart (`commit_and_randomize`)."""
-    pi_a, pi_b1, pi_b, pi_c, pi_h = commitments
-    terms = randomize_terms(hdr, r, s)
-    pi_a, pi_c = randomize_g1(terms, r, s, pi_a, pi_b1, pi_c, pi_h)
-    return pi_a, randomize_g2(terms, pi_b), pi_c
 
 
 def prove(wtns_path: str, cache: ZKeyCache, deterministic: bool = False, rng=None,

@@ -237,7 +237,6 @@ def test_the_split_randomisation_is_the_scalar_formula(case):
 
     old = randomize_after_msms(hdr, commitments, r, s)
     assert (pi_a, pi_b, pi_c) == old  # the same operations in the same order
-    assert pipeline.randomize(hdr, commitments, r, s) == old
     assert serialize_proof(pi_a, pi_b, pi_c) == serialize_proof(*old)
 
 
@@ -262,14 +261,14 @@ def test_an_all_zero_group_downloads_and_combines_to_the_identity(fixture, raw_c
     assert all(p[2] == 0 for p in windows)
     pi_h = msm_ops.horner_combine(windows, cache.msm_c)
     assert pi_h == cv.G1_ZERO
-    g1 = [msm_ops.horner_combine(msm_ops.window_points_to_host_g1(got, g), cache.msm_c)
-          for g in range(3)]
+    g1 = msm_ops.host_points(got, cache.msm_c, 4, g2=False)
     pi_a, pi_b1, pi_b, pi_c, _pi_h = raw_commitments
-    assert g1 == [pi_a, pi_b1, pi_c]
+    assert g1 == [pi_a, pi_b1, pi_c, pi_h]
     r, s = draw_after_msms(Seeded(11))
-    commitments = (pi_a, pi_b1, pi_b, pi_c, pi_h)
-    assert pipeline.randomize(cache.header, commitments, r, s) == \
-        randomize_after_msms(cache.header, commitments, r, s)
+    terms = pipeline.randomize_terms(cache.header, r, s)
+    split_a, split_c = pipeline.randomize_g1(terms, r, s, *g1)
+    assert (split_a, pipeline.randomize_g2(terms, pi_b), split_c) == \
+        randomize_after_msms(cache.header, (pi_a, pi_b1, pi_b, pi_c, pi_h), r, s)
 
 
 @pytest.mark.chip

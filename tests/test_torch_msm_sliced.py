@@ -2,7 +2,9 @@
 accumulation; plain versions on the CPU) against the JAX package's
 `msm_windows_sliced` and `_acc_windows` and the refmath oracle, on the
 inputs of tests/test_msm_units.py (group boundaries inside slices, a padded
-tail): window sums equal as AFFINE points, final points equal, G1 and G2."""
+tail): window sums equal as AFFINE points, final points equal, G1 and G2.
+`window_sums`, the one entry that picks in core or sliced, is held to its
+cap at both sides."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,6 +133,48 @@ def test_sliced_edge_cases_equal_direct(sizes, max_lanes):
         got = msm.horner_combine(msm.window_points_to_host_g1(sliced, g), C)
         assert cv.g1_eq(got, _oracle(vals[lo:lo + n_g], aff[lo:lo + n_g]))
         lo += n_g
+
+
+# The routing table of `window_sums` under a cap of 16 point lanes (G2: 8):
+# scalar lanes at exactly the cap and one lane past it, factors 1 and 2.
+ROUTE_CAP = 16
+
+
+@pytest.mark.parametrize("past", [0, 1], ids=["at_cap", "one_past"])
+@pytest.mark.parametrize("pre", [1, 2], ids=["f1", "f2"])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_window_sums_routes_at_the_cap(g2, pre, past, monkeypatch):
+    """`window_sums` runs in core at exactly the cap on point lanes and
+    sliced one scalar lane past it, G1 at MSM_MAX_LANES and G2 at half of
+    it, and returns word for word what the direct call of that route does."""
+    monkeypatch.setattr(msm, "MSM_MAX_LANES", ROUTE_CAP)
+    cap = ROUTE_CAP // 2 if g2 else ROUTE_CAP
+    n = cap // pre + past
+    aff = _g2_aff(n) if g2 else _g1_aff(n)
+    rng = np.random.default_rng(41 + n)
+    scalars = lb.ints_to_limbs(
+        [int(x) % R_MOD for x in rng.integers(0, 1 << 62, size=n, dtype=np.uint64)])
+    points = msm.precompute_bases(_port_g2(aff) if g2 else _port_g1(aff),
+                                  jc.G2 if g2 else jc.G1, C, pre)
+    records = msm.point_records(points)
+    sizes = [n] if g2 else [n - n // 3, n // 3]
+    routes = []
+
+    def spy(name):
+        real = getattr(msm, name)
+
+        def call(*args, **kwargs):
+            routes.append(name)
+            return real(*args, **kwargs)
+        return call
+
+    for name in ("msm_window_sums", "msm_windows_sliced"):
+        monkeypatch.setattr(msm, name, spy(name))
+    got = msm.window_sums(scalars, sizes, records, C, pre)
+    assert routes == ["msm_windows_sliced" if past else "msm_window_sums"]
+    want = (msm.msm_windows_sliced(scalars, sizes, records, C, cap, pre) if past else
+            msm.msm_window_sums(scalars, sizes, records, C, pre))
+    assert torch.equal(got, want)
 
 
 def test_sort_windows_takes_group_ids_and_a_sentinel():

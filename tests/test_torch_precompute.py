@@ -3,7 +3,10 @@ the JAX package: `precompute_bases` equals `precompute_bases_host` word for
 word (G1 and G2, factors 2 and 4, infinity lanes), merged digit rows equal
 `_merge_digit_windows`, an MSM over precomputed bases equals the plain one
 and the refmath oracle, and `to_affine` / the field inverse equal
-`to_affine_device` / `mont_inv` including 0 -> 0."""
+`to_affine_device` / `mont_inv` including 0 -> 0. The default plan at the
+benchmark keys' lane counts is pinned."""
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ from icicle_snark_tpu.ops import msm as jmsm
 from icicle_snark_tpu_torch.curve import jcurve as jc
 from icicle_snark_tpu_torch.fields import limbs as lb
 from icicle_snark_tpu_torch.ops import msm
+from icicle_snark_tpu_torch.prover import cache
 from icicle_snark_tpu_torch.refmath import curve as cv
 from icicle_snark_tpu_torch.refmath.field import Q, R_MOD, fq_to_mont
 
@@ -144,6 +148,18 @@ def test_choose_c_with_factor():
     c, f = msm.choose_c_pre(100003, groups=1, g2=True)
     assert f == msm.MSM_PRE_DEFAULT[1] and c == msm.choose_c(100003, 1, f)
     assert msm.merged_windows(13, 4) == 5 and msm.merged_windows(16, 2) == 8
+
+
+@pytest.mark.parametrize("n_vars,n_public,log_n,g1_lanes", [
+    (1600003, 1, 21, 6897159),  # complex-1600k
+    (936533, 9, 20, 3858165),   # anon_aadhaar-1536
+], ids=["complex-1600k", "anon_aadhaar-1536"])
+def test_default_plan_at_the_benchmark_keys(n_vars, n_public, log_n, g1_lanes):
+    """The plan a key of each benchmark cell's shape loads with, from its
+    lane counts alone: G1 (16, 1) and G2 (16, 1)."""
+    hdr = SimpleNamespace(n_vars=n_vars, n_public=n_public, domain_size=1 << log_n)
+    assert 3 * n_vars - (n_public + 1) + (1 << log_n) == g1_lanes
+    assert cache.default_msm_plan(hdr) == ((16, 1), (16, 1))
 
 
 def test_field_inverse_equals_mont_inv():

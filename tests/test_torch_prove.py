@@ -110,7 +110,7 @@ def test_convert_carries_precompute(fixture):
     jc.msm_c = jc.msm_c2 = c
     cache = _port_cache_from_jax(jc)
     assert (cache.msm_c, cache.msm_pre, cache.msm_c2, cache.msm_pre2) == (c, 2, c, 4)
-    assert cache.points_b2[0].shape[-1] == 4 * jc.header.n_vars
+    assert cache.b2_records.shape[0] == 4 * jc.header.n_vars
     assert cache.g1_sizes[0] == jc.header.n_vars
     assert pipeline.prove(wtns_path, cache, deterministic=True) == want
 
@@ -172,7 +172,8 @@ def test_port_large_circuit_routes_give_the_same_proof(fixture, jax_proof, route
     cache = load_zkey_cache(zkey_path, device="cpu", msm_plan=plan)
     if plan is not None:
         assert (cache.msm_pre, cache.msm_pre2) == (2, 2)
-        assert cache.points_a[0].shape[-1] == 2 * cache.header.n_vars
+        assert cache.g1_sizes[0] == cache.header.n_vars
+        assert cache.g1_records.shape[0] == 2 * sum(cache.g1_sizes)
     proof, public = pipeline.prove(wtns_path, cache, deterministic=True)
     assert (proof, public) == jax_proof
     assert oracle.verify(proof, public, vk)
