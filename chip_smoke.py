@@ -159,7 +159,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # the bounds' rates and per-operation multiply counts, and `bound`: one H100
 # SXM at 700 W (icicle_snark_tpu_torch/profiling.py states their sources)
 from icicle_snark_tpu_torch.profiling import (  # noqa: E402
-    FQ_MULS, INT_MULS_PER_S, MULS_PER_MONT, bound)
+    FQ_MULS, INT_MULS_PER_S, MULS_PER_MONT, bound, g2_level0_muls)
 
 MULS_PER_REDC = 136  # a product with standard 1: 8 rounds x (1 for m + 16 for m*p)
 
@@ -806,9 +806,23 @@ def _msm_shape(cache, g2: bool):
     return cache.g1_sizes, cache.g1_records, cache.msm_c
 
 
+def k4_finite(rec, order, start, length):
+    """Records that are not (0, 0) in each item of a level-0 table (start
+    indexes the flattened sorted positions of `order`)."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+
+    fin = ~lb.is_zero(rec.T.contiguous())[order.reshape(-1).long()]
+    cs = torch.cat([fin.new_zeros(1, dtype=torch.int64), torch.cumsum(fin, 0)])
+    return cs[start + length] - cs[start]
+
+
 def _k4_times(rec, sc, order, negs, ends, groups, c, bp, tag, reps=3):
     """K4 accumulate and reduce timed (CUDA events) on one MSM's sorted
-    lanes, with their bounds and a description of the case."""
+    lanes, with their bounds and a description of the case. G1's bound
+    counts one mixed add a finite lane with a nonzero digit; G2's the
+    products of its Jacobian level 0 (profiling.g2_level0_muls)."""
     import torch
 
     from icicle_snark_tpu_torch.fields import limbs as lb
@@ -825,8 +839,11 @@ def _k4_times(rec, sc, order, negs, ends, groups, c, bp, tag, reps=3):
     del digits, inf
     words = 16 if tag == "g2" else 8
     nbk = windows * groups * half
+    plan = msm.bucket_fold_plan(ends, windows, groups, half, total)
+    muls = (g2_level0_muls(k4_finite(rec, order, *plan[0])) if tag == "g2"
+            else madds * FQ_MULS[tag]["madd"])
     acc_bound = bound(total * 2 * words * 4 + windows * total * 5 + ends.numel() * 4
-                      + nbk * 3 * words * 4, madds * FQ_MULS[tag]["madd"] * MULS_PER_MONT)
+                      + nbk * 3 * words * 4, muls * MULS_PER_MONT)
     # sum_b b * B_b over H buckets: a running-sum triangle, 2(H - 1)
     # general adds per (window, group)
     adds = windows * groups * 2 * (half - 1)
@@ -834,11 +851,11 @@ def _k4_times(rec, sc, order, negs, ends, groups, c, bp, tag, reps=3):
                       adds * FQ_MULS[tag]["add"] * MULS_PER_MONT)
     runs = torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
     runs = runs.reshape(windows, groups, half + 1)[..., 1:]  # digit 0 has no bucket
-    levels = len(msm.bucket_fold_plan(ends, windows, groups, half, total))
     what = (f"{tag}: {total} lanes, {windows} windows, c {c}, longest bucket run "
-            f"{int(runs.max())}, {levels} accumulate levels (L {msm.BUCKET_PIECE}), reduce s "
+            f"{int(runs.max())}, {len(plan)} accumulate levels (L {msm.BUCKET_PIECE}), reduce s "
             f"{msm.REDUCE_SEG} nt {msm.reduce_shape(half)[2]}; kernel and plain version on the "
-            f"same lanes")
+            f"same lanes; {acc_ms:.3f} ms against a bound of {acc_bound[0]:.3f} ms "
+            f"({acc_bound[1]}; {madds} mixed adds, {muls} Fq products)")
     return acc_ms, red_ms, acc_bound, red_bound, what
 
 
@@ -4059,9 +4076,14 @@ K4_CASES = {
     "anon_aadhaar-1536": ([936533] * 3 + [1048566], 936533, "bits"),
 }
 K4_SOURCES = ("msm.cu", "msm_reduce.cu")
-# sources whose kernels K4's change must leave as they were: K13, K11, K4's rows
+# sources whose kernels K4's change must leave as they were: K13, K11, K4's rows,
+# and K4's accumulate but for G2's level 0 (K4_MAY_DIFFER)
 K4_SAME = ("msm_bls12_377.cu", "msm_bls12_381.cu", "msm_bw6_761.cu", "fixed_base.cu",
-           "msm_reduce.cu")
+           "msm_reduce.cu", "msm.cu")
+K4_MAY_DIFFER = {"msm_reduce.cu": lambda e: "rows" not in e,
+                 "msm.cu": lambda e: "msm_accumulate_kernelI2E2Lb1E" in e}
+# distinct points G2's records are drawn from (k4_inputs)
+K4_G2_POOL = 4096
 
 
 def k4_builds(variants: dict) -> dict:
@@ -4151,11 +4173,32 @@ def k4_lib(path: str):
     return lib
 
 
+def k4_g2_pool(gen, dev):
+    """K4_G2_POOL consecutive multiples of a random G2 point, as records."""
+    import torch
+
+    from icicle_snark_tpu_torch.fields import limbs as lb
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.refmath import curve as cv
+    from icicle_snark_tpu_torch.refmath.field import fq_to_mont
+
+    k = int(torch.randint(1, 1 << 62, (1,), generator=gen, device=dev))
+    p, pts = cv.g2_mul(cv.G2_GEN, k), []
+    for _ in range(K4_G2_POOL):
+        pts.append(cv.g2_to_affine(p))
+        p = cv.g2_add(p, cv.G2_GEN)
+    xy = tuple(torch.stack([lb.ints_to_limbs([fq_to_mont(a[i][c]) for a in pts], dev)
+                            for c in range(2)]) for i in range(2))
+    return msm.point_records(xy)
+
+
 def k4_inputs(gen, sizes, kind: str, g2: bool, dev):
-    """Scalars and records of one MSM at a circuit's shape: canonical
-    random coordinates with 1 % (0, 0) records; uniform scalars, or for
-    `bits` a witness of 85 % bits and 15 % uniform values in every group
-    but the last (h, uniform)."""
+    """Scalars and records of one MSM at a circuit's shape, with 1 % (0, 0)
+    records: G1's canonical random coordinates, G2's points of the curve
+    drawn from a pool (k4_g2_pool), so that designs whose words differ can
+    be held to one affine result; uniform scalars, or for `bits` a witness
+    of 85 % bits and 15 % uniform values in every group but the last (h,
+    uniform)."""
     import torch
 
     top = 0x30644E72  # the top word of q and of r
@@ -4173,8 +4216,11 @@ def k4_inputs(gen, sizes, kind: str, g2: bool, dev):
         sc[:, :n_w] = torch.where(bits, 0, sc[:, :n_w])
         sc[0, :n_w] = torch.where(bits, torch.randint(0, 2, (n_w,), generator=gen, device=dev,
                                                       dtype=torch.int32), sc[0, :n_w])
-    words = 16 if g2 else 8
-    rec = field(2 * words // 8, total).permute(2, 0, 1).reshape(total, 2 * words)
+    if g2:
+        pick = torch.randint(0, K4_G2_POOL, (total,), generator=gen, device=dev)
+        rec = k4_g2_pool(gen, dev)[pick]
+    else:
+        rec = field(2, total).permute(2, 0, 1).reshape(total, 16)
     inf = torch.rand(total, generator=gen, device=dev) < 0.01
     rec[inf] = 0
     return sc, rec.contiguous()
@@ -4269,6 +4315,41 @@ def k4_edge_check(lib, rng, dev) -> bool:
     return ok
 
 
+def k4_affine(wsum) -> list:
+    """G2 window sums (3, 2, 8, G, W) as affine host points, group by group."""
+    from icicle_snark_tpu_torch.ops import msm
+    from icicle_snark_tpu_torch.refmath import curve as cv
+
+    arr = wsum.cpu().numpy()
+    return [[cv.g2_to_affine(p) for p in msm.window_points_to_host_g2(arr, g)]
+            for g in range(arr.shape[3])]
+
+
+def k4_sample_check(lib, case, gen, n: int = 4096) -> tuple:
+    """Level 0 of `lib` on n items of the case's level-0 table drawn at
+    random, word for word against msm_bucket_sums_plain on the card, and the
+    plain version's step counts there (G2's Jacobian branches)."""
+    import torch
+
+    from icicle_snark_tpu_torch.ops import msm
+
+    g2, rec, order, negs, plan, *_ = case
+    start, length = plan[0]
+    idx = torch.randperm(start.shape[0], generator=gen, device=start.device)[:n]
+    st, ln = start[idx].contiguous(), length[idx].contiguous()
+    coords = (2, 8) if g2 else (8,)
+    out = torch.empty((3,) + coords + (st.shape[0],), dtype=torch.int32, device=rec.device)
+    err = lib.snark_msm_accumulate(int(g2), 1, out.data_ptr(), rec.data_ptr(), rec.shape[0],
+                                   order.data_ptr(), negs.data_ptr(), st.data_ptr(),
+                                   ln.data_ptr(), st.shape[0],
+                                   torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"accumulate launch failed: {err}"
+    branches = {}
+    want = msm.msm_bucket_sums_plain(g2, True, rec, order, negs.to(torch.bool), st, ln, branches)
+    torch.cuda.synchronize()
+    return torch.equal(out, want), branches
+
+
 def k4_only(args, dev, rng, card) -> int:
     """--k4-only: K4's instantiations timed one launch at a time at the two
     cells' MSM shapes, for this tree's sources at the block sizes of
@@ -4315,10 +4396,10 @@ def k4_only(args, dev, rng, card) -> int:
                     with open(path, "w") as fh:
                         fh.write(entries.get(e, ""))
             log(f"[k4 ptx] {src}: {len(a)} entries, differing from the parent's: {differ}")
-            if src != "msm_reduce.cu" and differ:
-                failures.append(f"{src}: kernels differ from the parent's")
-            if any("rows" in e for e in differ):
-                failures.append("msm_reduce_rows_kernel differs from the parent's")
+            may = K4_MAY_DIFFER.get(src, lambda e: False)
+            if any(not may(e) for e in differ):
+                failures.append(f"{src}: kernels differ from the parent's: "
+                                f"{[e for e in differ if not may(e)]}")
     libs = {name: k4_lib(lib) for name, (lib, _u, _p) in built.items()}
     x = torch.ones((1 << 26,), device=dev)
     for _ in range(200):  # the card's clocks up (warm_card needs the package's build)
@@ -4341,26 +4422,52 @@ def k4_only(args, dev, rng, card) -> int:
             plan = msm.bucket_fold_plan(ends, windows, len(szs), half, total)
             case = (g2, rec, order.reshape(-1).contiguous(), negs.reshape(-1).contiguous(),
                     plan, windows, len(szs), half)
-            del sc, ends
+            # level 0's operations bound: the kernel's own products, and at
+            # one RCB15 mixed add (39 / 11 products) a finite lane
+            fin = k4_finite(rec, order, *plan[0])
+            madds = int(fin.sum())
+            muls = g2_level0_muls(fin) if g2 else madds * FQ_MULS["g1"]["madd"]
+            bounds = {"level0_bound_ms": bound(0, muls * MULS_PER_MONT)[0],
+                      "level0_rcb15_bound_ms": bound(
+                          0, madds * FQ_MULS["g2" if g2 else "g1"]["madd"] * MULS_PER_MONT)[0]}
+            del sc, ends, fin
             tag = f"{circuit} {'g2' if g2 else 'g1'}"
-            times, first = {}, None
-            # turns: every library, then again in the reverse order
+            times, first = {}, {}
+            # turns: every library, then again in the reverse order. Words
+            # are held equal within the parent's and within this tree's
+            # builds; across them G2's window sums as affine points (its
+            # level 0 stores other words of the same points), G1's words.
             for name in names + names[::-1]:
                 t, got = k4_run(libs[name], case, 3)
                 for launch, ms in t.items():
                     times.setdefault(name, {}).setdefault(launch, []).extend(ms)
-                if first is None:
-                    first = got
-                elif not all(torch.equal(a, b) for a, b in zip(first, got)):
-                    failures.append(f"{tag}: {name}'s words differ from {names[0]}'s")
+                family = "parent" if name == "parent" else "change"
+                if family not in first:
+                    first[family] = got
+                elif not all(torch.equal(a, b) for a, b in zip(first[family], got)):
+                    failures.append(f"{tag}: {name}'s words differ from its family's first")
+                ref = first["parent"] if "parent" in first else first["change"]
+                if g2 and ref is not got and k4_affine(ref[3]) != k4_affine(got[3]):
+                    failures.append(f"{tag}: {name}'s window sums differ from the parent's")
+                elif not g2 and not all(torch.equal(a, b) for a, b in zip(ref, got)):
+                    failures.append(f"{tag}: {name}'s words differ from the parent's")
+            if "change" in libs:
+                same, branches = k4_sample_check(libs["change"], case, gen)
+                log(f"[k4] {tag}: change's level 0 on a sample of items equal to the plain "
+                    f"version {same}; steps {branches}")
+                if not same:
+                    failures.append(f"{tag}: level 0 differs from its plain version")
             med = {name: {launch: statistics.median(v) for launch, v in t.items()}
                    for name, t in times.items()}
             report["cases"][tag] = {"c": c, "lanes": total, "levels": len(plan),
                                     "items": [int(st.shape[0]) for st, _ in plan],
-                                    "median_ms": med, "ms": times}
+                                    "median_ms": med, "ms": times, **bounds,
+                                    "sample_steps": branches if "change" in libs else None}
             for name, m in med.items():
                 log(f"[k4] {tag}: {name} " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
                     + f" ms (c {c}, {len(plan)} levels)")
+            log(f"[k4] {tag}: level 0 bound {bounds['level0_bound_ms']:.3f} ms at the kernel's "
+                f"products, {bounds['level0_rcb15_bound_ms']:.3f} ms at RCB15's")
             del case, plan, order, negs, rec, first
             torch.cuda.empty_cache()
     os.makedirs(OUT_DIR, exist_ok=True)

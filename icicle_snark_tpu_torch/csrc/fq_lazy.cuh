@@ -27,8 +27,9 @@
 // a loop makes each coordinate canonical when it stores it, so the
 // projective words equal those of curve.cuh's formulas and of the plain
 // versions (setup/fast_setup.py fixed_base_msm_plain, ops/msm.py
-// msm_bucket_sums_plain, msm_reduce_segments_plain) word for word. Nothing
-// branches on a lazy value: the complete formulas need no such branch.
+// msm_bucket_sums_plain, msm_reduce_segments_plain) word for word. The
+// complete formulas branch on no lazy value; K4's G2 level 0, on Jacobian
+// additions (fq2_lazy.cuh), tests values for zero mod q (fq_lz_is_zero).
 // tests/test_torch_fq_lazy.py models these steps on Python integers and
 // checks every bound; tests/test_torch_setup_host_cuda.py and
 // tests/test_torch_msm_host_cuda.py run the loops on the host.
@@ -153,6 +154,17 @@ __device__ __forceinline__ E1 fq_lz_canon(const E1& a) {
   E1 r;
   cond_sub_p<Fq>(r.v, a.v, 0);
   return r;
+}
+
+// a = 0 mod q for a < 2q: a is 0 or q
+__device__ __forceinline__ bool fq_lz_is_zero(const E1& a) {
+  u32 z = 0, d = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    z |= a.v[k];
+    d |= a.v[k] ^ Fq::p(k);
+  }
+  return z == 0 || d == 0;
 }
 
 // The lazy operations by element type, for the formulas below (fq2_lazy.cuh

@@ -21,7 +21,9 @@
 // into pieces of at most L = BUCKET_PIECE positions (torch cumsum and
 // repeat_interleave) and hands this kernel one table per level:
 //   level 0:  one thread per piece mixed-adds the piece's affine points (y
-//             negated for a negative digit), starting from the first point;
+//             negated for a negative digit), starting from the first point
+//             (BN254 G2 in Jacobian coordinates, fq2_lazy.cuh, stored
+//             homogeneous);
 //   level >0: one thread per piece of the previous level's partial sums adds
 //             them in order with complete projective adds,
 // until every bucket has at most L inputs; that last level has one item per
@@ -35,8 +37,11 @@
 // The order of additions is fixed by the tables (no atomics on points), so
 // every run gives the same words and the plain version mirrors them.
 //
-// Bound: operations, one mixed add per lane with a nonzero digit (11 Fq
-// products for G1, 39 for G2; chip_smoke.py counts them from the digits).
+// Bound: operations, one mixed add per lane with a nonzero digit: 11 Fq
+// products for G1; for G2's Jacobian level 0 29, 16 on a piece's first add,
+// and 8 a store (profiling.py g2_level0_muls; the benchmark's roofline keeps
+// RCB15's 39 as its fixed yardstick). chip_smoke.py counts them from the
+// digits.
 // What the design does about the old kernel's faults:
 //   * thread per bucket, time set by the longest run: pieces of at most L;
 //   * 16 or 32 scattered 32-byte sectors per limb-major point: points come
@@ -46,7 +51,9 @@
 //   * canonical Fq arithmetic, a conditional subtraction after every
 //     product, sum and difference and 9x as four doublings: BN254's loops
 //     keep their coordinates lazy in [0, 2q) (fq_lazy.cuh, fq2_lazy.cuh),
-//     canonical at the store.
+//     canonical at the store;
+//   * G2's 255 registers and 39 Fq products a mixed add: level 0 adds in
+//     Jacobian coordinates, 29 Fq products and fewer live Fq2 values.
 //
 // ---------------------------------------------------------------- reduce
 //
@@ -90,16 +97,18 @@
 
 // BN254's G1 and G2 run level 0 of the accumulate and the segments stage in
 // the lazy layer (fq_lazy.cuh, fq2_lazy.cuh): every coordinate in [0, 2q)
-// between additions and canonical at the store, so the words stored equal
-// those of curve.cuh's formulas. So does G1 in the fold levels; G2's fold
-// levels keep curve.cuh's canonical add, since nvcc 12.8's cicc crashes
-// (segmentation fault) on the lazy G2 add in that loop, though the same add
-// builds in the segments stage. The other curves' point types (K13) keep
+// between additions and canonical at the store. G1's level 0 and the
+// segments stage store the words of curve.cuh's formulas; G2's level 0 adds
+// in Jacobian coordinates (k4_jacobian_item) and stores other words of the
+// same points. G1 runs the fold levels lazy too; G2's fold levels keep
+// curve.cuh's canonical add, since nvcc 12.8's cicc crashes (segmentation
+// fault) on the lazy G2 add in that loop, though the same add builds in the
+// segments stage. The other curves' point types (K13) keep
 // their canonical formulas (curve_n.cuh).
 template <class E>
 inline constexpr bool k4_lazy = std::is_same_v<E, E1> || std::is_same_v<E, E2>;
-template <class E, bool AFF>
-inline constexpr bool k4_lazy_acc = k4_lazy<E> && (AFF || !std::is_same_v<E, E2>);
+template <class E>
+inline constexpr bool k4_lazy_acc = std::is_same_v<E, E1>;
 
 // p + (x, y), (x, y) a canonical record; (0, 0) is the identity
 template <bool LAZY, class E>
@@ -128,10 +137,16 @@ __device__ __forceinline__ void k4_store(u32* base, long long n, long long i, co
     p_store(base, n, i, p);
 }
 
-// threads of an accumulate block, by instantiation (the sweep of PERF.md)
-template <class E, bool AFF> struct AccThreads { static constexpr int N = 128; };
-template <> struct AccThreads<E1, true> { static constexpr int N = 512; };
-template <> struct AccThreads<E1, false> { static constexpr int N = 512; };
+// threads of an accumulate block, by instantiation (the sweep of PERF.md),
+// and the resident blocks an SM asked of ptxas (0: none, no directive). G2's
+// level 0 at 184 registers held two blocks of 128 threads an SM, as the
+// RCB15 loop did at 255; asking for three caps it at 168 (40-44 B spilled)
+// and took complex-1600k's G2 level 0 from 51.8 to 42.4-42.8 ms (PERF.md,
+// the K4 row of the kernel table).
+template <class E, bool AFF> struct AccThreads { static constexpr int N = 128, B = 0; };
+template <> struct AccThreads<E1, true> { static constexpr int N = 512, B = 0; };
+template <> struct AccThreads<E1, false> { static constexpr int N = 512, B = 0; };
+template <> struct AccThreads<E2, true> { static constexpr int N = 128, B = 3; };
 
 template <class E>
 __device__ __forceinline__ void load_signed(E& x, E& y, const u32* __restrict__ rec,
@@ -142,19 +157,46 @@ __device__ __forceinline__ void load_signed(E& x, E& y, const u32* __restrict__ 
   if (negs[pos]) y = e_neg(y);
 }
 
+// Item i of BN254 G2's level 0, msm_accumulate_kernel<E2, true>'s body: the
+// sum in Jacobian coordinates from Z = 0, the first record that is not
+// (0, 0) starting it (fq2_lazy.cuh lz_jstep), stored homogeneous
+// (lz_jac_to_proj).
+__device__ __forceinline__ void k4_jacobian_item(u32* __restrict__ out,
+                                                 const u32* __restrict__ src,
+                                                 const int* __restrict__ order,
+                                                 const unsigned char* __restrict__ negs,
+                                                 const long long* __restrict__ start,
+                                                 const int* __restrict__ len, long long n_items,
+                                                 long long i) {
+  long long st = start[i];
+  int ln = len[i];
+  Pt<E2> acc = p_identity<E2>();
+  bool z1 = false;
+  for (int r = 0; r < ln; r++) {
+    E2 x, y;
+    load_signed(x, y, src, order, negs, st + r);
+    acc = lz_jstep(acc, z1, x, y);
+  }
+  p_store(out, n_items, i, lz_jac_to_proj(acc));
+}
+
 // AFF: src is the (total, words) record array, start[i] a flattened
 // (window, sorted position) index into order/negs. Otherwise src is the
 // previous level's (3, coords..., n_src) partial sums, start[i] an index into
 // them. Item i adds len[i] inputs from start[i] on and writes out[i].
 template <class E, bool AFF>
-__global__ void __launch_bounds__((AccThreads<E, AFF>::N))
+__global__ void __launch_bounds__((AccThreads<E, AFF>::N), (AccThreads<E, AFF>::B))
     msm_accumulate_kernel(u32* __restrict__ out, const u32* __restrict__ src, long long n_src,
                           const int* __restrict__ order, const unsigned char* __restrict__ negs,
                           const long long* __restrict__ start, const int* __restrict__ len,
                           long long n_items) {
-  constexpr bool lazy = k4_lazy_acc<E, AFF>;
+  constexpr bool lazy = k4_lazy_acc<E>;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_items) return;
+  if constexpr (std::is_same_v<E, E2> && AFF) {
+    k4_jacobian_item(out, src, order, negs, start, len, n_items, i);
+    return;
+  }
   long long st = start[i];
   int ln = len[i];
   Pt<E> acc = p_identity<E>();

@@ -9,7 +9,10 @@ CUDA tensors), with independent products batched into one launch
 (`mul_many`). The plain versions of K4 and of the setup's fixed-base
 scan (K11) run them with `plain=True` ops. `pdbl_k` (k
 doublings) and `to_affine` launch `csrc/precompute.cu` for CUDA tensors
-and run `pdbl_k_plain` / `to_affine_plain` for CPU tensors.
+and run `pdbl_k_plain` / `to_affine_plain` for CPU tensors. K4's G2 level
+0 adds in Jacobian coordinates instead (csrc/fq2_lazy.cuh); its plain
+version runs `jmadd`, `jdbl` and `jac_to_proj`, incomplete formulas whose
+exceptions the caller branches on.
 
 Point representations (Montgomery-form limbs, see fields/limbs.py):
   G1: (x, y, z), each (8, n)
@@ -216,6 +219,60 @@ def pdbl(ops, p):
     t0b = sub(t0, add(add(t2b, t2b), t2b))
     mx, mz, my, mxf = ops.mul_many([(t2b, z3a), (t1, z3a), (t0b, y3s), (t0b, txy)])
     return (add(mxf, mxf), add(mx, my), mz)
+
+
+def _sqr(ops, a):
+    return ops.mul_many([(a, a)])[0]
+
+
+def jdbl(ops, p):
+    """Jacobian doubling (dbl-2009-l, a=0) of (X, Y, Z), affine (X/Z^2, Y/Z^3)."""
+    x1, y1, z1 = p
+    add, sub = ops.add, ops.sub
+    a, b, yz = ops.mul_many([(x1, x1), (y1, y1), (y1, z1)])
+    c = _sqr(ops, b)
+    d = sub(sub(_sqr(ops, add(x1, b)), a), c)
+    d = add(d, d)
+    e = add(add(a, a), a)
+    x3 = sub(_sqr(ops, e), add(d, d))
+    c8 = add(c, c)
+    c8 = add(c8, c8)
+    c8 = add(c8, c8)
+    y3 = sub(ops.mul_many([(e, sub(d, x3))])[0], c8)
+    return (x3, y3, add(yz, yz))
+
+
+def jmadd(ops, p, q_aff):
+    """Incomplete Jacobian mixed addition (madd-2007-bl, a=0): p = (X, Y, Z)
+    with Z != 0, plus affine q, not the identity. Returns the sum and the
+    lanes where q = p (H = r = 0), whose sum the caller replaces by
+    jdbl(p); where q = -p (H = 0, r != 0) the sum has Z = 0, the identity."""
+    x1, y1, z1 = p
+    x2, y2 = q_aff
+    add, sub = ops.add, ops.sub
+    zz = _sqr(ops, z1)
+    u2, zzz = ops.mul_many([(x2, zz), (z1, zz)])
+    h = sub(u2, x1)
+    r = sub(ops.mul_many([(y2, zzz)])[0], y1)
+    r = add(r, r)
+    hh = _sqr(ops, h)
+    z3 = sub(sub(_sqr(ops, add(z1, h)), zz), hh)
+    i = add(hh, hh)
+    i = add(i, i)
+    j, v, rr = ops.mul_many([(h, i), (x1, i), (r, r)])
+    x3 = sub(sub(rr, j), add(v, v))
+    m, yj = ops.mul_many([(r, sub(v, x3)), (y1, j)])
+    same = ops.is_zero_lanes(h) & ops.is_zero_lanes(r)
+    return (x3, sub(m, add(yj, yj)), z3), same
+
+
+def jac_to_proj(ops, p):
+    """Jacobian (X, Y, Z) -> homogeneous projective (X Z, Y, Z^3), the
+    identity (0, 1, 0) where Z = 0."""
+    x, y, z = p
+    xz, zzz = ops.mul_many([(x, z), (_sqr(ops, z), z)])
+    inf = ops.is_zero_lanes(z)
+    return pselect(inf, identity(ops, z.shape[-1], z.device), (xz, y, zzz))
 
 
 def pneg(ops, p):

@@ -192,7 +192,8 @@ _SIGNATURES = {
 
 
 class Kernel:
-    """One C entry of the library, with its launch count."""
+    """One C entry of the library, with its launch count, and the launches
+    of each named variant a wrapper marks (`variants`)."""
 
     def __init__(self, name: str, entry: str, source: str, replaces: str):
         self.name = name
@@ -200,8 +201,9 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.variants = {}
 
-    def launch(self, *args):
+    def launch(self, *args, variant: str | None = None):
         import torch
 
         stream = torch.cuda.current_stream().cuda_stream
@@ -209,6 +211,8 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
         self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 FIELD_VEC = Kernel(
@@ -334,6 +338,7 @@ ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
 def reset_counts():
     for k in ALL:
         k.launches = 0
+        k.variants = {}
 
 
 def counts() -> dict:

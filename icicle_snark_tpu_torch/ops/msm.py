@@ -255,16 +255,60 @@ def bucket_fold_plan(ends, windows: int, groups: int, half: int, total: int) -> 
         start, cnt = first, pieces
 
 
-def msm_bucket_sums_plain(g2, affine: bool, src, order, negs, start, length):
+def g2_jacobian(g2, affine: bool) -> bool:
+    """Whether an accumulate level runs on Jacobian mixed additions: BN254
+    G2's level 0 (csrc/fq2_lazy.cuh lz_jstep)."""
+    return affine and as_group(g2) is BN254_G2
+
+
+def _jacobian_level(ops, load, st, ln, branches):
+    """The items of one BN254 G2 level-0 chunk as the kernel adds them: from
+    the identity (Z = 0), each record (x, y) is skipped if it is (0, 0)
+    ("skip"), taken as (x, y, 1) by a sum at the identity ("load"), else
+    added by jcurve.jmadd ("add"; "cancel" where the sum's Z becomes 0), or
+    doubled by jcurve.jdbl where it equals the sum ("double"). Stored
+    homogeneous by jcurve.jac_to_proj. The kernel's first add after a load
+    takes jmadd's Z = 1 form (mmadd-2007-bl), whose values jmadd gives at
+    Z = 1. `branches`, a dict, counts the steps of each kind."""
+    m, dev = st.shape[0], st.device
+    acc = jc.identity(ops, m, dev)
+    one = jc.identity(ops, 1, dev)[1]
+    for r in range(int(ln.max()) if m else 0):
+        act = torch.nonzero(ln > r).squeeze(1)
+        cur = tuple(a[..., act] for a in acc)
+        x, y = load(st[act] + r)
+        skip = ops.is_zero_lanes(x) & ops.is_zero_lanes(y)
+        fresh = ~skip & ops.is_zero_lanes(cur[2])
+        new, same = jc.jmadd(ops, cur, (x, y))
+        same &= ~skip & ~fresh
+        dbl = torch.nonzero(same).squeeze(1)
+        if dbl.numel():
+            for a, v in zip(new, jc.jdbl(ops, tuple(c[..., dbl] for c in cur))):
+                a[..., dbl] = v
+        new = jc.pselect(fresh, (x, y, one.expand(x.shape)), new)
+        new = jc.pselect(skip, cur, new)
+        if branches is not None:
+            added = ~skip & ~fresh & ~same
+            cancel = added & ops.is_zero_lanes(new[2])
+            for key, mask in (("skip", skip), ("load", fresh), ("add", added & ~cancel),
+                              ("double", same), ("cancel", cancel)):
+                branches[key] = branches.get(key, 0) + int(mask.sum())
+        for a, v in zip(acc, new):
+            a[..., act] = v
+    return jc.point_stack(jc.jac_to_proj(ops, acc))
+
+
+def msm_bucket_sums_plain(g2, affine: bool, src, order, negs, start, length, branches=None):
     """Plain version of one K4 / K13 accumulate level (csrc/msm_kernels.cuh), in the
     kernel's order of additions: item i adds length[i] inputs from start[i]
     on. affine: src the (total, words) records, order/negs the flattened
     (W * total) sorted lanes and signs; the first point (y negated for a
     negative digit; (0, 0) is the identity) starts the sum, the others are
-    mixed-added. Otherwise src is the previous level's (3, coords..., m)
-    partial sums, the first starts the sum and the others are added.
-    Returns (3, coords..., n_items). Items are taken PLAIN_CHUNK at a time.
-    g2: a bool for BN254's groups, or a PointGroup."""
+    mixed-added (BN254 G2 in Jacobian coordinates, `_jacobian_level`, whose
+    steps `branches` counts). Otherwise src is the previous level's
+    (3, coords..., m) partial sums, the first starts the sum and the others
+    are added. Returns (3, coords..., n_items). Items are taken PLAIN_CHUNK
+    at a time. g2: a bool for BN254's groups, or a PointGroup."""
     ops = _ops(g2, True)
     n = start.shape[0]
     dev = start.device
@@ -280,6 +324,9 @@ def msm_bucket_sums_plain(g2, affine: bool, src, order, negs, start, length):
                 return x, torch.where(negs[pos], ops.neg(y), y)
             return tuple(a[..., pos] for a in jc.point_unstack(src))
 
+        if g2_jacobian(g2, affine):
+            out.append(_jacobian_level(ops, load, st, ln, branches))
+            continue
         acc = jc.identity(ops, m, dev)
         some = torch.nonzero(ln > 0).squeeze(1)
         if some.numel():
@@ -327,7 +374,8 @@ def msm_bucket_sums(g2, affine: bool, src, order, negs, start, length):
     args = (int(grp.g2), int(affine), out.data_ptr(), src.data_ptr(), n_src, order.data_ptr(),
             negs.data_ptr(), start.data_ptr(), length.data_ptr(), n)
     if grp.curve < 0:
-        kernels.MSM_ACCUMULATE.launch(*args)
+        kernels.MSM_ACCUMULATE.launch(
+            *args, variant="g2_jacobian" if g2_jacobian(grp, affine) else None)
     else:
         kernels.MSM_ACCUMULATE_N.launch(grp.curve, *args)
     return out
@@ -343,6 +391,8 @@ def _accumulate(records, order, negs, ends, groups: int, half: int, level_fn, gr
     order, negs = order.reshape(-1), negs.reshape(-1)
     src, affine = records, True
     for start, length in bucket_fold_plan(ends, windows, groups, half, total):
+        if g2_jacobian(group, affine):
+            trace.count("g2_jacobian", start.shape[0])
         src = level_fn(group, affine, src, order, negs, start, length)
         affine = False
     return src

@@ -48,8 +48,25 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 64 * 132 * 1.98e9
 MULS_PER_MONT = 264  # 8 CIOS rounds x (16 for a*b_i lo/hi + 1 for m + 16 for m*p)
-# Fq products per point operation (csrc/curve.cuh; G1's b3 product is adds)
-FQ_MULS = {"g1": {"madd": 11, "add": 12, "dbl": 8}, "g2": {"madd": 39, "add": 42, "dbl": 27}}
+# Fq products per point operation (csrc/curve.cuh; G1's b3 product is adds).
+# K4's BN254 G2 level 0 adds in Jacobian coordinates (csrc/fq2_lazy.cuh):
+# jmadd a mixed add, jmadd_z1 the first after a load (Z = 1), jstore the
+# conversion to homogeneous coordinates at an item's store
+FQ_MULS = {"g1": {"madd": 11, "add": 12, "dbl": 8},
+           "g2": {"madd": 39, "add": 42, "dbl": 27, "jmadd": 29, "jmadd_z1": 16, "jstore": 8}}
+
+
+def g2_level0_muls(finite) -> int:
+    """Fq products of K4's BN254 G2 level 0 over items holding `finite`
+    records that are not (0, 0) (an int tensor, one entry an item): the
+    first loaded, the second added with Z = 1, each further one a Jacobian
+    mixed add, and the store of every item that loaded one. The rare
+    doubling and reload count as adds."""
+    g2 = FQ_MULS["g2"]
+    adds = (finite - 1).clamp(min=0)
+    first = int((adds > 0).sum())
+    return (first * g2["jmadd_z1"] + (int(adds.sum()) - first) * g2["jmadd"]
+            + int((finite > 0).sum()) * g2["jstore"])
 
 
 def bound(bytes_moved: float, muls: float) -> tuple:

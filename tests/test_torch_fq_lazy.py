@@ -9,7 +9,9 @@ Fq2; the 9x reduction for every x next to each quotient step and next to 0
 and 2q; the canonical store; and the mixed add (G1, G2) and the complete
 add (G1, G2), run on the model from lazy coordinates, against the same
 formulas in canonical arithmetic (jcurve.pmadd and jcurve.padd on the
-plain ops)."""
+plain ops); the Fq2 square and the zero-mod-q test, and K4's G2 level 0 on
+Jacobian additions (every operation's operands and result in [0, 2q),
+every branch taken) against the plain version's words."""
 
 import random
 from types import SimpleNamespace
@@ -347,3 +349,185 @@ def test_lazy_g2_mixed_add_equals_canonical_formula():
     want = [_coord_ints(t, True) for t in acc]
     got = [[LAZY_FQ2.canon(p[c]) for p in model] for c in range(3)]
     assert got == want
+
+
+# ---------------------------------------------------------------- Jacobian G2 (fq2_lazy.cuh)
+
+def fq2_sqr(a):
+    """fq2_lz_sqr: (a0 + a1)(a0 - a1) and 2 a0 a1 on the lazy Fq steps."""
+    t = lz_mul(a[0], a[1])
+    return lz_mul(lz_add(a[0], a[1]), lz_sub(a[0], a[1])), lz_add(t, t)
+
+
+def lz_is_zero(a):
+    """fq_lz_is_zero on the words: every word 0, or every word q's."""
+    ws = _words(a)
+    return not any(ws) or all(w == qw for w, qw in zip(ws, Q_WORDS))
+
+
+def fq2_is_zero(a):
+    return lz_is_zero(a[0]) and lz_is_zero(a[1])
+
+
+def test_fq2_sqr_and_zero_test_on_edges_and_random():
+    """The Fq2 square: components below 2q with a a's residue; the zero
+    test: true exactly at 0 and q of [0, 2q), in Fq and componentwise."""
+    prng = random.Random(34)
+    edges = [0, 1, Q - 1, Q, Q + 1, 2 * Q - 2, 2 * Q - 1]
+    vals = [(a, b) for a in edges for b in edges]
+    vals += [(prng.randrange(2 * Q), prng.randrange(2 * Q)) for _ in range(300)]
+    for a in vals:
+        _check2(fq2_sqr(a), _fq2_residue(a, a))
+        assert fq2_is_zero(a) == (a[0] % Q == 0 and a[1] % Q == 0)
+    for a in edges + [prng.randrange(2 * Q) for _ in range(100)] + [Q ^ (1 << 200), Q + (1 << 31)]:
+        assert lz_is_zero(a) == (a % Q == 0)
+
+
+class _Bounded:
+    """LAZY_FQ2's operations and the square, each asserting that its
+    operands and its result lie in [0, 2q) componentwise."""
+
+    def __init__(self):
+        self.steps = 0
+
+    def _op(self, fn, *args):
+        assert all(LAZY_FQ2.bounded(a) for a in args)
+        out = fn(*args)
+        assert LAZY_FQ2.bounded(out)
+        self.steps += 1
+        return out
+
+    def mul(self, a, b):
+        return self._op(fq2_mul, a, b)
+
+    def sqr(self, a):
+        return self._op(fq2_sqr, a)
+
+    def add(self, a, b):
+        return self._op(LAZY_FQ2.add, a, b)
+
+    def sub(self, a, b):
+        return self._op(LAZY_FQ2.sub, a, b)
+
+
+ONE2 = (R % Q, 0)
+
+
+def _jdbl_model(p, f):
+    """lz_jdbl (dbl-2009-l) on the model."""
+    x, y, z = p
+    yz = f.mul(y, z)
+    z3 = f.add(yz, yz)
+    a, b = f.sqr(x), f.sqr(y)
+    c = f.sqr(b)
+    d = f.sub(f.sub(f.sqr(f.add(x, b)), a), c)
+    d = f.add(d, d)
+    e = f.add(f.add(a, a), a)
+    x3 = f.sub(f.sqr(e), f.add(d, d))
+    c8 = f.add(c, c)
+    c8 = f.add(c8, c8)
+    c8 = f.add(c8, c8)
+    return x3, f.sub(f.mul(e, f.sub(d, x3)), c8), z3
+
+
+def _jstep_model(p, x2, y2, f, z1=False):
+    """lz_jstep on the model: (sum, the branch taken); z1: the sum's Z is
+    the 1 of a load, so the add takes the Z = 1 form (mmadd-2007-bl)."""
+    if fq2_is_zero(x2) and fq2_is_zero(y2):
+        return p, "skip"
+    if fq2_is_zero(p[2]):
+        return (x2, y2, ONE2), "load"
+    x, y, z = p
+    u2, s2 = x2, y2
+    if not z1:
+        zz = f.sqr(z)
+        u2 = f.mul(x2, zz)
+        s2 = f.mul(y2, f.mul(z, zz))
+    h = f.sub(u2, x)
+    r = f.sub(s2, y)
+    r = f.add(r, r)
+    if fq2_is_zero(h) and fq2_is_zero(r):
+        return _jdbl_model(p, f), "double"
+    hh = f.sqr(h)
+    z3 = f.add(h, h) if z1 else f.sub(f.sub(f.sqr(f.add(z, h)), zz), hh)
+    i = f.add(hh, hh)
+    i = f.add(i, i)
+    j = f.mul(h, i)
+    v = f.mul(x, i)
+    x3 = f.sub(f.sub(f.sqr(r), j), f.add(v, v))
+    yj = f.mul(y, j)
+    y3 = f.sub(f.mul(r, f.sub(v, x3)), f.add(yj, yj))
+    return (x3, y3, z3), ("cancel" if fq2_is_zero(z3) else "add")
+
+
+def _jstore_model(p, f):
+    """lz_jac_to_proj on the model: canonical (X Z, Y, Z^3), or (0, 1, 0)."""
+    x, y, z = p
+    if fq2_is_zero(z):
+        return (0, 0), ONE2, (0, 0)
+    out = (f.mul(x, z), y, f.mul(f.sqr(z), z))
+    return tuple(LAZY_FQ2.canon(c) for c in out)
+
+
+def _fq2_canon_mul(a, b):
+    return tuple(v % Q for v in _fq2_residue(a, b))
+
+
+def _affine_of_jac(p):
+    """(X / Z^2, Y / Z^3) of a canonical Montgomery Jacobian sum, as a
+    Montgomery record: with Z^-1 in Montgomery form, products by lz_mul."""
+    x, y, z = (tuple(c % Q for c in v) for v in p)
+    inv_n = pow((z[0] * z[0] + z[1] * z[1]) % Q, -1, Q)
+    zi = (z[0] * inv_n % Q * R % Q * R % Q, (-z[1]) * inv_n % Q * R % Q * R % Q)
+    zi2 = _fq2_canon_mul(zi, zi)
+    return _fq2_canon_mul(x, zi2), _fq2_canon_mul(y, _fq2_canon_mul(zi2, zi))
+
+
+def test_lazy_g2_jacobian_level_bounds_and_plain_words():
+    """K4's G2 level 0 on the model: pieces of records (arbitrary Fq2 values
+    as canonical records, given lazy, v or v + q, in odd pieces) through
+    lz_jstep from the identity (the first add after a load in its Z = 1
+    form, which the plain version computes as jcurve.jmadd at Z = 1) and
+    the store, every operation's operands
+    and result in [0, 2q), equal word for word to msm_bucket_sums_plain's
+    Jacobian level. The pieces reach every branch: (0, 0) records first
+    and inside, a record equal to the sum (the first two equal, and one
+    equal to a sum of two), a record equal to minus the sum, then more."""
+    from icicle_snark_tpu_torch.ops import msm
+
+    rng = random.Random(35)
+    f = _Bounded()
+    pool = [tuple((rng.randrange(Q), rng.randrange(Q)) for _ in range(2)) for _ in range(12)]
+    neg = lambda v: ((-v[0]) % Q, (-v[1]) % Q)  # noqa: E731
+    zero = ((0, 0), (0, 0))
+    # the affine value of pool[0] + pool[1] as the formula forms it
+    s01, _ = _jstep_model((*pool[0], ONE2), *pool[1], f)
+    pool.append(_affine_of_jac(s01))
+    pieces = [
+        [], [zero], [pool[2]], [pool[3], pool[3], pool[4]],
+        [pool[0], pool[1], pool[12], pool[5]],
+        [zero, pool[6], (pool[6][0], neg(pool[6][1])), zero, pool[7], pool[8]],
+        [pool[9], pool[10], (pool[10][0], neg(pool[10][1])), pool[11], zero],
+    ] + [[pool[rng.randrange(12)] for _ in range(6)] for _ in range(4)]
+    seen, want = {}, []
+    for k, piece in enumerate(pieces):
+        acc, z1 = ((0, 0), ONE2, (0, 0)), False
+        for x2, y2 in piece:
+            if k % 2:
+                x2, y2 = _lazy_elem(x2, rng, True), _lazy_elem(y2, rng, True)
+            acc, branch = _jstep_model(acc, x2, y2, f, z1)
+            seen[branch] = seen.get(branch, 0) + 1
+            z1 = branch == "load" or (z1 and branch == "skip")
+        want.append(_jstore_model(acc, f))
+    assert seen.keys() == {"skip", "load", "add", "double", "cancel"} and f.steps > 300
+    flat = [p for piece in pieces for p in piece]
+    rec = msm.point_records((_g2_limbs([p[0] for p in flat]), _g2_limbs([p[1] for p in flat])))
+    start = torch.tensor(np.cumsum([0] + [len(p) for p in pieces[:-1]]), dtype=torch.int64)
+    length = torch.tensor([len(p) for p in pieces], dtype=torch.int32)
+    order = torch.arange(len(flat), dtype=torch.int32)
+    branches = {}
+    out = msm.msm_bucket_sums_plain(True, True, rec, order, torch.zeros(len(flat), dtype=torch.bool),
+                                    start, length, branches)
+    assert branches == seen
+    got = [_coord_ints(t, True) for t in jc.point_unstack(out)]
+    assert [[w[c] for w in want] for c in range(3)] == got

@@ -12,7 +12,9 @@ first lane too), negated digits, pieces of length 0, 1 and L, pieces and
 folds whose sum is the identity, and a doubling through the add; then the
 levels of `bucket_fold_plan` and the segments stage over a grouped MSM of
 bit-valued and uniform scalars, with empty buckets and identity partial
-sums. Skips where no g++ is installed."""
+sums; G2's level 0 on Jacobian additions (csrc/fq2_lazy.cuh) on pieces that
+take every branch of its step (the plain version's counts), with each sum
+held to refmath's. Skips where no g++ is installed."""
 
 import shutil
 import subprocess
@@ -342,3 +344,53 @@ def test_fold_levels_and_segments_equal_plain(harness, g2, monkeypatch):
         want = torch.cat([jc.point_stack(s_plain), jc.point_stack(t_plain)], dim=-1)
         got = run("seg", int(g2), d, rows, half, seg).reshape((2, 3) + ops.coords + (-1,))
         assert torch.equal(torch.cat([got[0], got[1]], dim=-1), want)
+
+
+# G2 level 0 on Jacobian additions (csrc/fq2_lazy.cuh lz_jstep) over records
+# 0..11 (k G, k = 1..12) and 12, 13 (the (0, 0) record), pieces of at most
+# L = 5: lengths 0, 1 and L; a duplicate base first (P + P); G + 2G + 3G,
+# whose third record equals the sum (a doubling mid-piece); G + 2G - 3G, a
+# piece that sums to the identity; +P then -P, then more points (the
+# identity, then a reload); (0, 0) records first, inside and last; -P four
+# times with +P between (two doublings).
+PIECES_JAC = [
+    [],
+    [(5, 0)],
+    [(12, 0)],
+    [(3, 0), (3, 0), (4, 0)],
+    [(0, 0), (1, 0), (2, 0), (7, 1), (9, 0)],
+    [(0, 0), (1, 0), (2, 1)],
+    [(6, 0), (6, 1), (10, 0), (11, 1), (13, 0)],
+    [(12, 0), (1, 0), (13, 0), (2, 0), (12, 0)],
+    [(4, 1), (4, 1), (4, 0), (13, 0), (4, 1)],
+]
+L_JAC = 5
+
+
+def test_g2_jacobian_level0_branches_equal_plain(harness):
+    """G2's level 0 (msm_accumulate_kernel<E2, true>, `k4_jacobian_item`)
+    on the Jacobian pieces: the plain
+    version's words, every branch of the step taken (the plain version's
+    counts), and each stored sum the piece's sum (refmath) as an affine
+    point, the identity as (0, 1, 0)."""
+    pts = _pool(True, 12) + [INF, INF]
+    rec = _records(True, pts)
+    start, length, lanes = _tables(PIECES_JAC)
+    assert sorted({len(p) for p in PIECES_JAC}) == [0, 1, 3, L_JAC]
+    order = torch.tensor([r for r, _ in lanes], dtype=torch.int32)
+    negs = torch.tensor([bool(neg) for _, neg in lanes])
+    branches = {}
+    want = msm.msm_bucket_sums_plain(True, True, rec, order, negs, start, length, branches)
+    got = _host_level(harness, True, True, rec, order, negs, start, length)
+    assert torch.equal(got, want)
+    assert branches == {"skip": 6, "load": 8, "add": 8, "double": 4, "cancel": 2}
+    sums = msm.window_points_to_host_g2(want.reshape(3, 2, 8, 1, -1).numpy(), 0)
+    for piece, got_pt in zip(PIECES_JAC, sums):
+        acc = cv.G2_ZERO
+        for r, neg in piece:
+            if pts[r] != INF:
+                p = cv.g2_from_affine(pts[r])
+                acc = cv.g2_add(acc, cv.g2_neg(p) if neg else p)
+        assert cv.g2_eq(got_pt, acc)
+        if cv.g2_eq(acc, cv.G2_ZERO):
+            assert got_pt == ((0, 0), (1, 0), (0, 0))

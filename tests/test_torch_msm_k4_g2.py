@@ -83,3 +83,40 @@ def test_g2_accumulate_edges_match_jax_and_oracle(kind, monkeypatch):
     for v, a in zip(vals, aff):
         want = cv.g2_add(want, cv.g2_mul(cv.g2_from_affine(a), v))
     assert cv.g2_eq(got, want)
+
+
+@pytest.mark.parametrize("piece", [2, 16])
+def test_g2_jacobian_msm_duplicate_bases_and_signed_digits_match_oracle(piece, monkeypatch):
+    """The G2 MSM on the CPU path (the plain level 0 on Jacobian additions,
+    the folds, the reduce, `host_points`) over two groups: one base twice
+    with one scalar (P + P opens a bucket of window 0), one base with
+    digits +7 and -7 (P - P), a (0, 0) base, and 20 lanes drawn from five
+    bases; each group's sum equals refmath's, and level 0 takes the
+    doubling, the cancellation and the skip."""
+    monkeypatch.setattr(msm, "BUCKET_PIECE", piece)
+    rng = np.random.default_rng(23)
+    bases = _aff()[:6]
+    aff = [bases[0], bases[0], bases[1], bases[1], ((0, 0), (0, 0))]
+    aff += [bases[2 + int(k)] for k in rng.integers(0, 4, size=19)]
+    vals = [5, 5, 7, 256 - 7, S] + [int(v) for v in rng.integers(1, 1 << 62, size=19)]
+    sizes = [14, 10]
+    scalars = lb.ints_to_limbs(vals)
+    records = msm.point_records(tuple(
+        torch.stack([lb.ints_to_limbs(_coords(aff, i, comp)) for comp in range(2)])
+        for i in range(2)))
+    ws = msm.window_sums(scalars, sizes, records, C)
+    got = msm.host_points(ws.numpy(), C, len(sizes), True)
+    lo = 0
+    for g, size in enumerate(sizes):
+        want = cv.G2_ZERO
+        for v, a in zip(vals[lo:lo + size], aff[lo:lo + size]):
+            want = cv.g2_add(want, cv.g2_mul(cv.g2_from_affine(a), v))
+        assert cv.g2_eq(got[g], want)
+        lo += size
+    order, negs, ends = msm.sort_windows(scalars, sizes, C)
+    start, length = msm.bucket_fold_plan(ends, order.shape[0], len(sizes), 1 << (C - 1),
+                                         len(vals))[0]
+    branches = {}
+    msm.msm_bucket_sums_plain(True, True, records, order.reshape(-1), negs.reshape(-1), start,
+                              length, branches)
+    assert branches["double"] >= 1 and branches["cancel"] >= 1 and branches["skip"] >= 1

@@ -15,7 +15,8 @@ BN254's plain versions unchanged:
     form;
   * BN254's plain window sums (K4's plain versions) give the words they gave
     before K13 changed: digests of a seed-made case, taken with the earlier
-    tree's package.
+    tree's package; G2's words as its level 0 on Jacobian additions stores
+    them, and its affine window points as the earlier tree gave them.
 """
 
 import hashlib
@@ -169,11 +170,15 @@ def test_every_fold_level_and_tree_level_match_jax(monkeypatch):
 
 
 # sha256 of K4's plain window sums of `_bn254_case` at BUCKET_PIECE 2, then
-# 16, taken with the package as it was before K13's redesign
+# 16: their words, G1's taken with the package as it was before K13's
+# redesign, G2's since its level 0 adds in Jacobian coordinates; and G2's
+# affine window points group by group, taken with the package before that
+# change (other words of the same points)
 BN254_DIGESTS = {
     False: "f9518cdf64453064135eb8dc420f4f287fcd8445d28520c93f01619d7ec0ac9e",
-    True: "fe95c1377aada0e0d68bed2c449235ff55109913efc56cf9ba594d387a03bda6",
+    True: "e6c5273bed456c1e1b34468793a333ecd0a33da04044ebcb876dd3c2e24da961",
 }
+BN254_G2_AFFINE_DIGEST = "e666ac8fdddc8a003196de044fc0bf933a7db0db87e523718b1b589a631f043d"
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
@@ -193,8 +198,15 @@ def test_bn254_plain_window_sums_unchanged(g2, monkeypatch):
     vals[:5] = [0, 1, 1, R_MOD - 1, 2]
     sc = lb.ints_to_limbs(vals)
     rec = msm.point_records((x, y))
-    h = hashlib.sha256()
+    h, h_aff = hashlib.sha256(), hashlib.sha256()
     for piece in (2, 16):
         monkeypatch.setattr(msm, "BUCKET_PIECE", piece)
-        h.update(msm.msm_window_sums(sc, list(sizes), rec, 8).numpy().tobytes())
+        ws = msm.msm_window_sums(sc, list(sizes), rec, 8).numpy()
+        h.update(ws.tobytes())
+        if g2:
+            for g in range(len(sizes)):
+                h_aff.update(repr([cv.g2_to_affine(p)
+                                   for p in msm.window_points_to_host_g2(ws, g)]).encode())
     assert h.hexdigest() == BN254_DIGESTS[g2]
+    if g2:
+        assert h_aff.hexdigest() == BN254_G2_AFFINE_DIGEST

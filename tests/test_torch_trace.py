@@ -81,6 +81,16 @@ def test_a_timed_prove_records_its_span_tree(proved):
     assert recs[3].counts == {"chunks": 1} and recs[4].counts == {}
 
 
+def test_the_g2_level0_counts_its_jacobian_items(proved):
+    """`msm.accumulate` under `msm.g2` counts the items of G2's level 0, which
+    adds in Jacobian coordinates (`g2_jacobian`); G1's counts nothing."""
+    *_, timers, _ = proved
+    for t in timers:
+        recs = t.records
+        acc = {recs[r.parent].name: r.counts for r in recs if r.name == "msm.accumulate"}
+        assert acc["msm.g1"] == {} and acc["msm.g2"]["g2_jacobian"] > 0
+
+
 def test_phases_of_a_timed_prove_are_unchanged(proved):
     *_, timers, proofs = proved
     for t in timers:
@@ -269,4 +279,31 @@ def test_the_ingest_waits_for_nothing_on_the_card(proved):
     counts = {r.name: r.counts for r in recs if r.name.startswith("ingest.")}
     assert counts == {"ingest.open": {}, "ingest.copy": {"chunks": 1}, "ingest.read": {}}
     assert recs[4].name == "ingest.read" and recs[4].stream_idle
+    assert open(proof).read() == proofs[0]
+
+
+@pytest.mark.chip
+def test_the_g2_level0_launch_is_counted_on_the_card(proved):
+    """A timed prove on the card launches G2's level 0 once on the Jacobian
+    route (the K4 wrapper's `g2_jacobian` variant), counts its items in
+    `msm.g2`'s `msm.accumulate` as the CPU's prove does, and gives the CPU's
+    proof."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from icicle_snark_tpu_torch import kernels
+
+    tmp, zkey, vk, wtns, cm, timers, proofs = proved
+    cuda = api.CacheManager("cuda")
+    proof, public = str(tmp / "proof_card.json"), str(tmp / "public_card.json")
+    api.groth16_prove(wtns, zkey, proof, public, cuda, deterministic=True)  # warm-up
+    before = kernels.MSM_ACCUMULATE.variants.get("g2_jacobian", 0)
+    t = pipeline.PhaseTimer("cuda")
+    api.groth16_prove(wtns, zkey, proof, public, cuda, deterministic=True, timer=t)
+    assert kernels.MSM_ACCUMULATE.variants["g2_jacobian"] == before + 1
+
+    def g2_items(timer):
+        return [r.counts.get("g2_jacobian") for r in timer.records
+                if r.name == "msm.accumulate" and timer.records[r.parent].name == "msm.g2"]
+
+    assert g2_items(t) == g2_items(timers[0])
     assert open(proof).read() == proofs[0]
