@@ -31,7 +31,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      K5 on the same pair (G2 on a pair of threads a lane, with
      its registers), K4 at every lane of both MSMs; K5, K6
      and K4 once more at the large circuit's shapes in phase 7; K9-K11 in
-     phase 6; K8 at the probe's; K18 at 2^20 and 1 600 003 rows);
+     phase 6; K8 at the probe's; K18 at 2^20 and 1 600 003 rows; K19's pairs
+     and radix sort at complex-1600k's G1 shape);
   4. the coset evaluation (K2 rows, then K5's passes with the keys and h
      fused in) against its plain version word for word, on the fixture's
      and on a bit-valued witness, timed, its launches counted (K2 once, K5
@@ -1627,6 +1628,60 @@ def check_witness_limbs(rep, rng, dev, timed=(1 << 20, 1600003)):
             ms=ms[n], ms_by_rows=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             timed=f"(n, 8) -> (8, n) int32 at {sorted(ms)} rows (the plain version on the host)")
     return ok
+
+
+# complex-1600k's G1 groups (A, B1, C, H lanes) and window size: K19's check
+MSM_SORT_SIZES, MSM_SORT_C = (1600003, 1600003, 1600001, 2097152), 16
+
+
+def check_msm_sort(rep, rng, dev) -> bool:
+    """K19 at complex-1600k's G1 shape against its plain versions: the
+    pairs word for word (`window_pairs` against `window_pairs_plain`, run on
+    the card), then the sorted pairs (`sort_pairs` against
+    `sort_pairs_plain`, torch.sort of int64 keys); both timed (CUDA events).
+    Bounds by bytes: 36 a lane read and 8 a pair written; 16 a pair sorted
+    (each read and written once)."""
+    import torch
+
+    from icicle_snark_tpu_torch import kernels
+    from icicle_snark_tpu_torch.ops import msm
+
+    sizes, c = MSM_SORT_SIZES, MSM_SORT_C
+    n = sum(sizes)
+    words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    words[7] &= (1 << 30) - 1
+    sc = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+    half = 1 << (c - 1)
+    kr = (len(sizes) + 1) * (half + 1)
+    base = msm.group_ids(sizes, dev) * (half + 1)
+    windows = msm.merged_windows(c)
+    bits = (windows * kr - 1).bit_length()
+    keys, vals = msm.window_pairs(sc, base, c, 1, kr)
+    (pk, pv), keys_plain_ms = timed_once(lambda: msm.window_pairs_plain(sc, base, c, 1, kr))
+    keys_ok = bool(torch.equal(keys, pk) and torch.equal(vals, pv))
+    del pk, pv
+    keys, vals = keys.view(-1), vals.view(-1)
+    (wk, wv), sort_plain_ms = timed_once(lambda: msm.sort_pairs_plain(keys, vals))
+    sk, sv = msm.sort_pairs(keys.clone(), vals.clone(), bits)
+    sort_ok = bool(torch.equal(sk, wk) and torch.equal(sv, wv))
+    del wk, wv, sk, sv
+    keys_ms = cuda_time(lambda: msm.window_pairs(sc, base, c, 1, kr), 20)
+    # the sort overwrites its buffers with a permutation of the same pairs: time it in place
+    sort_ms = cuda_time(lambda: msm.sort_pairs(keys, vals, bits), 20)
+    pairs = windows * n
+    kb, kby = bound(36 * n + 8 * pairs, 0)
+    sb, sby = bound(16 * pairs, 0)
+    log(f"  msm_sort_keys {n} lanes, c {c}: equal {keys_ok}; {keys_ms:.4f} ms (bound {kb:.4f}, "
+        f"{kby}); plain {keys_plain_ms:.2f} ms")
+    log(f"  msm_sort {pairs} pairs over {bits} bits: equal {sort_ok}; {sort_ms:.4f} ms (bound "
+        f"{sb:.4f}, {sby}); plain {sort_plain_ms:.2f} ms")
+    timed = f"complex-1600k's G1, {n} lanes in {len(sizes)} groups, c {c}"
+    rep.add(kernels.MSM_SORT_KEYS.name, equal_to_plain=keys_ok, max_abs_err=0.0 if keys_ok else 1.0,
+            ms=keys_ms, plain_ms=keys_plain_ms, bound_ms=kb, bound_by=kby, timed=timed)
+    rep.add(kernels.MSM_SORT.name, equal_to_plain=sort_ok, max_abs_err=0.0 if sort_ok else 1.0,
+            ms=sort_ms, plain_ms=sort_plain_ms, bound_ms=sb, bound_by=sby,
+            timed=f"{timed}: {pairs} pairs, {bits} key bits")
+    return keys_ok and sort_ok
 
 
 def write_witness_words(path: str, n: int, seed: int) -> str:
@@ -3240,6 +3295,8 @@ KERNEL_FUNCTIONS = {
     "ntt_block_n": ("ntt_block_n_kernel",),
     "ntt_radix": ("ntt_radix_kernel<RadixFr",), "ntt_radix_n": ("ntt_radix_kernel<RadixN",),
     "witness_limbs": ("witness_limbs_kernel",),
+    # cub's radix sort kernels, which csrc/msm_sort.cu puts in the namespace msm_sort
+    "msm_sort_keys": ("msm_sort_keys_kernel",), "msm_sort": ("msm_sort::cub",),
 }
 KERNEL_NAMES = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
@@ -4656,6 +4713,7 @@ def main() -> int:
                        key_points(cache.b2_records, True)), dev)),
         ("probe_chain", lambda: check_probe(rep, rng, dev)),
         ("witness_limbs", lambda: check_witness_limbs(rep, rng, dev)),
+        ("msm_sort", lambda: check_msm_sort(rep, rng, dev)),
     ]
     for name, fn in checks:
         t1 = time.perf_counter()

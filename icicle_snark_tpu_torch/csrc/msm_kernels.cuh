@@ -16,7 +16,8 @@
 // the sorted points. On Hopper a thread walks a run of sorted lanes.
 //
 // The lanes of each window arrive sorted by key = group * (H + 1) + |digit|
-// (torch.sort in ops/msm.py), so bucket (window, group, b) is a run of
+// (K19, csrc/msm_sort.cu, through ops/msm.py sort_windows: one radix sort of
+// every window's pairs), so bucket (window, group, b) is a run of
 // consecutive sorted positions. ops/msm.py `bucket_fold_plan` cuts every run
 // into pieces of at most L = BUCKET_PIECE positions (torch cumsum and
 // repeat_interleave) and hands this kernel one table per level:

@@ -188,6 +188,13 @@ _SIGNATURES = {
     "snark_ntt_block_n": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _I, _VP],
     # out (8, n), words (n, 8), n, stream
     "snark_witness_limbs": [_VP, _VP, _LL, _VP],
+    # keys, vals, scalars, base, n, words, c, wp, f, kr_step, stream
+    "snark_msm_sort_keys": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _LL, _VP],
+    # n, end_bit, bytes (a host long long): the sort's temporary storage (no launch)
+    "snark_msm_sort_bytes": [_LL, _I, _VP],
+    # keys, keys_alt, vals, vals_alt, n, end_bit, temp, temp_bytes, selector (a host int),
+    # stream
+    "snark_msm_sort": [_VP, _VP, _VP, _VP, _LL, _I, _VP, _LL, _VP, _VP],
 }
 
 
@@ -328,11 +335,22 @@ WITNESS_LIMBS = Kernel(
     "witness_limbs", "snark_witness_limbs", "icicle_snark_tpu_torch/csrc/witness_limbs.cu",
     "icicle_snark_tpu/fields/limbs.py:153; icicle_snark_tpu/prover/pipeline.py:371",
 )
+# The MSM's bucket sort (ops/msm.py sort_windows): the pairs, then cub's radix
+# sort, whose kernels the source puts in the namespace msm_sort
+MSM_SORT_KEYS = Kernel(
+    "msm_sort_keys", "snark_msm_sort_keys", "icicle_snark_tpu_torch/csrc/msm_sort.cu",
+    "icicle_snark_tpu/ops/msm.py:167; icicle_snark_tpu/ops/msm.py:594",
+)
+MSM_SORT = Kernel(
+    "msm_sort", "snark_msm_sort", "icicle_snark_tpu_torch/csrc/msm_sort.cu",
+    "icicle_snark_tpu/ops/msm.py:653; icicle_snark_tpu/ops/msm.py:664",
+)
 ALL = (FIELD_VEC, R1CS, NTT, MSM_ACCUMULATE, MSM_REDUCE,
        NTT_BLOCK, POINT_ADD, POINT_DBL_K, POINT_TO_AFFINE, PROBE,
        FIELD_POW, FIELD_REDUCE, FIXED_BASE,
        FIELD_VEC_N, MSM_ACCUMULATE_N, MSM_REDUCE_N, NTT_N, FOUR_STEP,
-       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N, NTT_RADIX, NTT_RADIX_N, WITNESS_LIMBS)
+       FIELD_POW_N, FIELD_REDUCE_N, NTT_BLOCK_N, NTT_RADIX, NTT_RADIX_N, WITNESS_LIMBS,
+       MSM_SORT_KEYS, MSM_SORT)
 
 
 def reset_counts():

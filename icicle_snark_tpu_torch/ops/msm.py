@@ -3,9 +3,13 @@
 The bucket method as the reference runs it on a GPU, over the data layout
 of icicle_snark_tpu/ops/msm.py:
 
-  1. signed c-bit window digits of the scalars (plain torch, msm.py:167);
-  2. per window, lanes sorted by key = group * (H + 1) + |digit| with
-     torch.sort, H = 2^(c-1), and bucket ends by searchsorted;
+  1. signed c-bit window digits of the scalars (msm.py:167), written by
+     `window_pairs` (K19, csrc/msm_sort.cu) as one (key, value) pair of
+     int32 words per (window, lane): key = w * KR + group * (H + 1) +
+     |digit|, KR = (G + 1)(H + 1), H = 2^(c-1); value = lane | sign << 31;
+  2. `sort_pairs` (K19): one stable radix sort of every window's pairs over
+     the key bits they use (22 at c = 16), each window's row in place, and
+     bucket ends by searchsorted (`sort_windows`);
   3. `msm_accumulate` (K4, csrc/msm.cu): every bucket's run of sorted lanes
      cut into pieces of at most BUCKET_PIECE points, one thread per piece,
      the pieces' sums folded the same way until one sum per bucket is left
@@ -80,10 +84,11 @@ PLAIN_CHUNK = 1 << 21
 
 
 # Point lanes one in-core MSM pipeline may hold. Per point lane the
-# pipeline keeps, for each of W windows: the digit and its key (2 x int64),
-# torch.sort's sorted keys and order (2 x int64), the int32 order K4 reads,
-# and three sign bytes: 39 bytes, 624 per lane at W = 16 (c = 16) and 780
-# at W = 20 (c = 13); K4's first level adds, per BUCKET_PIECE lane-windows,
+# pipeline keeps, for each of W windows: K19's key and value (2 x int32)
+# and the radix sort's second buffer of both, then the int32 order K4 reads
+# (the sorted values' words, masked in place) and a sign byte: 17 bytes,
+# 272 per lane at W = 16 (c = 16) and 340 at W = 20 (c = 13), plus cub's
+# scratch, under a byte; K4's first level adds, per BUCKET_PIECE lane-windows,
 # a table entry (12 bytes, about 40 while it is built) and a partial sum
 # (96 bytes G1, 192 G2), under 16 bytes per lane-window; plus the affine
 # record (64 bytes G1, 128 G2): 1 KiB per lane covers both. 2^25 lanes are
@@ -743,32 +748,147 @@ def merge_digit_windows(arr: torch.Tensor, factor: int, fill=0) -> torch.Tensor:
 
 # ---------------------------------------------------------------- pipeline
 
-def sort_windows(scalars: torch.Tensor, groups_of, c: int, precompute: int = 1):
-    """Digits, keys and the per-window sort: (order, negs, ends) for K4.
-    `groups_of` is the list of group sizes, or (gids, n_groups) with a
-    per-lane group id tensor; lanes whose id is n_groups sort past every
-    bucket. With precompute f the rows are the merged windows over f
-    times the lanes."""
-    half = 1 << (c - 1)
-    dev = scalars.device
-    if isinstance(groups_of, tuple):
-        gid, groups = groups_of
-        gid = gid.to(device=dev, dtype=torch.int64)
-    else:
-        groups = len(groups_of)
-        gid = torch.repeat_interleave(
-            torch.arange(groups, device=dev), torch.tensor(list(groups_of), device=dev))
+SORT_MAX_BITS = 31  # key bits of one sort of every window's pairs (int32 keys)
+
+
+def group_ids(sizes, dev) -> torch.Tensor:
+    """(sum(sizes),) int32: the group of each lane of group-concatenated
+    lanes of the given sizes, made by fills on `dev` with no blocking wait
+    (no host copy, no repeat_interleave of a tensor of counts)."""
+    return torch.cat([torch.full((s,), g, dtype=torch.int32, device=dev)
+                      for g, s in enumerate(sizes)]
+                     or [torch.empty(0, dtype=torch.int32, device=dev)])
+
+
+def window_pairs_plain(scalars, base, c: int, precompute: int = 1, kr_step: int = 0):
+    """Plain version of K19's first launch (`window_pairs`): the digits of
+    `window_digits_signed`, merged as `merge_digit_windows` merges them."""
     digits, neg = window_digits_signed(scalars, c)
     if precompute > 1:
         digits = merge_digit_windows(digits, precompute, 0)
         neg = merge_digit_windows(neg, precompute, False)
-        gid = torch.repeat_interleave(gid, precompute)
-    keys = gid * (half + 1) + digits  # (W, total)
-    sorted_keys, order = torch.sort(keys, dim=1, stable=True)
-    negs = torch.gather(neg, 1, order)
-    probes = torch.arange(groups * (half + 1), device=dev).expand(keys.shape[0], -1)
-    ends = torch.searchsorted(sorted_keys, probes.contiguous(), right=True)
-    return order.to(torch.int32), negs, ends.to(torch.int32)
+    wp, total = digits.shape
+    dev = scalars.device
+    rows = torch.arange(wp, device=dev)[:, None] * kr_step
+    keys = digits + base.to(torch.int64).repeat_interleave(precompute) + rows
+    lanes = torch.arange(total, dtype=torch.int32, device=dev)
+    return keys.to(torch.int32), torch.where(neg, lanes | -(1 << 31), lanes)  # sign: top bit
+
+
+def window_pairs(scalars: torch.Tensor, base: torch.Tensor, c: int, precompute: int = 1,
+                 kr_step: int = 0):
+    """The (key, value) pairs of every window of an MSM pipeline, K19's
+    first launch: scalars (words, n) int32 (8 or 12 words), base (n,) int32,
+    each scalar lane's group * (H + 1). Returns keys and values, each
+    (wp, n * precompute) int32, wp = merged_windows(c, precompute, 32
+    words): for merged window j and lane l, key = j * kr_step + base +
+    |digit| and value = l | neg << 31, the balanced digits of
+    `window_digits_signed` in the lanes of `merge_digit_windows` (dead slots
+    digit 0). The caller keeps wp * kr_step within 31 bits."""
+    words, n = scalars.shape
+    if (scalars.dtype != torch.int32 or base.dtype != torch.int32 or base.shape != (n,)
+            or base.device != scalars.device or words not in (8, 12)):
+        raise ValueError("window_pairs: want (8 or 12, n) int32 scalars and an (n,) int32 base")
+    if scalars.device.type == "cpu":
+        return window_pairs_plain(scalars, base, c, precompute, kr_step)
+    if scalars.device.type != "cuda":
+        raise RuntimeError(f"window_pairs: unsupported device {scalars.device}")
+    wp = merged_windows(c, precompute, 32 * words)
+    scalars, base = scalars.contiguous(), base.contiguous()
+    keys, vals = (torch.empty((wp, n * precompute), dtype=torch.int32, device=scalars.device)
+                  for _ in range(2))
+    kernels.MSM_SORT_KEYS.launch(keys.data_ptr(), vals.data_ptr(), scalars.data_ptr(),
+                                 base.data_ptr(), n, words, c, wp, precompute, kr_step)
+    return keys, vals
+
+
+def sort_pairs_plain(keys, vals):
+    """Plain version of K19's sort: the keys as int64, torch.sort(stable=True)."""
+    sorted_keys, idx = torch.sort(keys.to(torch.int64), stable=True)
+    return sorted_keys.to(torch.int32), vals[idx]
+
+
+def sort_pairs(keys: torch.Tensor, vals: torch.Tensor, bits: int):
+    """(n,) int32 keys in [0, 2^bits) and (n,) int32 values -> both in the
+    order of a stable sort by key: K19's sort (cub's radix sort over key
+    bits [0, bits), its scratch from torch's allocator, on the current
+    stream). On CUDA the inputs are its double buffer and are overwritten.
+    Counts `sort_items` and `sort_bits` in the open span."""
+    n = keys.numel()
+    if (keys.dtype != torch.int32 or vals.dtype != torch.int32 or keys.dim() != 1
+            or vals.shape != keys.shape or vals.device != keys.device
+            or not 1 <= bits <= SORT_MAX_BITS or n >= 1 << 31):
+        raise ValueError(f"sort_pairs: want (n,) int32 keys and values, n < 2^31, and 1 <= "
+                         f"bits <= {SORT_MAX_BITS}")
+    trace.count("sort_items", n)
+    trace.count("sort_bits", bits)
+    if keys.device.type == "cpu":
+        return sort_pairs_plain(keys, vals)
+    if keys.device.type != "cuda":
+        raise RuntimeError(f"sort_pairs: unsupported device {keys.device}")
+    if n == 0:
+        return keys, vals
+    keys, vals = keys.contiguous(), vals.contiguous()
+    need = ctypes.c_longlong()
+    err = kernels.lib().snark_msm_sort_bytes(n, bits, ctypes.addressof(need))
+    if err:
+        raise RuntimeError(f"msm_sort: CUDA error {err} sizing the sort")
+    temp = torch.empty(max(need.value, 1), dtype=torch.uint8, device=keys.device)
+    keys_alt, vals_alt = torch.empty_like(keys), torch.empty_like(vals)
+    selector = ctypes.c_int()
+    kernels.MSM_SORT.launch(keys.data_ptr(), keys_alt.data_ptr(), vals.data_ptr(),
+                            vals_alt.data_ptr(), n, bits, temp.data_ptr(), need.value,
+                            ctypes.addressof(selector))
+    return (keys_alt, vals_alt) if selector.value else (keys, vals)
+
+
+def _sorted_pairs(scalars, gid, groups: int, c: int, precompute: int, max_bits: int):
+    """Every window's pairs (`window_pairs`), sorted: (values (W, total),
+    ends (W, G * (H + 1))) for `sort_windows`. One sort of all W * total
+    pairs by key w * KR + group * (H + 1) + |digit|, KR = (G + 1)(H + 1),
+    over the bits of W * KR where those are at most `max_bits` and W *
+    total < 2^31; else each window's pairs sorted alone over the bits of KR."""
+    half = 1 << (c - 1)
+    kr = (groups + 1) * (half + 1)
+    windows = merged_windows(c, precompute, 32 * scalars.shape[0])
+    total = scalars.shape[-1] * precompute
+    if total >= 1 << 31 or kr > 1 << 31:
+        raise ValueError(f"sort_windows: {total} lanes and {kr} keys a window exceed 31 bits")
+    dev = scalars.device
+    base = gid * (half + 1)
+    probes = torch.arange(groups * (half + 1), dtype=torch.int32, device=dev)
+    bits = (windows * kr - 1).bit_length()
+    if windows * total < 1 << 31 and bits <= max_bits:
+        keys, vals = window_pairs(scalars, base, c, precompute, kr)
+        keys, vals = sort_pairs(keys.view(-1), vals.view(-1), bits)
+        w = torch.arange(windows, dtype=torch.int32, device=dev)[:, None]
+        ends = torch.searchsorted(keys, probes + w * kr, right=True, out_int32=True) - w * total
+        return vals.view(windows, total), ends
+    keys, vals = window_pairs(scalars, base, c, precompute)
+    rows = [sort_pairs(k, v, (kr - 1).bit_length()) for k, v in zip(keys, vals)]
+    ends = torch.stack([torch.searchsorted(k, probes, right=True, out_int32=True)
+                        for k, _ in rows])
+    return torch.stack([v for _, v in rows]), ends
+
+
+def sort_windows(scalars: torch.Tensor, groups_of, c: int, precompute: int = 1):
+    """Digits, keys and the sort of every window: (order, negs, ends) for
+    K4. `groups_of` is the list of group sizes, or (gids, n_groups) with a
+    per-lane group id tensor; lanes whose id is n_groups sort past every
+    bucket. With precompute f the rows are the merged windows over f
+    times the lanes. Returns order (W, total) int32, each window's lanes
+    sorted by group * (H + 1) + |digit|, ties in lane order; negs (W,
+    total) bool, their digits' signs; ends (W, G * (H + 1)) int32, the
+    lanes with key <= k. K19 makes and sorts the pairs (`_sorted_pairs`)."""
+    if isinstance(groups_of, tuple):
+        gid, groups = groups_of
+        gid = gid.to(device=scalars.device, dtype=torch.int32)
+    else:
+        groups = len(groups_of)
+        gid = group_ids(groups_of, scalars.device)
+    vals, ends = _sorted_pairs(scalars, gid, groups, c, precompute, SORT_MAX_BITS)
+    negs = vals < 0
+    return vals.bitwise_and_(0x7FFFFFFF), negs, ends
 
 
 def _window_sums(scalars, groups_of, records, c: int, precompute: int, group=None):
@@ -815,8 +935,7 @@ def msm_windows_sliced(scalars: torch.Tensor, group_sizes, records, c: int, max_
         raise ValueError(f"msm_windows_sliced: max_lanes {max_lanes} below the factor {precompute}")
     groups = len(group_sizes)
     dev = scalars.device
-    gid = torch.repeat_interleave(
-        torch.arange(groups, device=dev), torch.tensor(list(group_sizes), device=dev))
+    gid = group_ids(group_sizes, dev)
     parts = []
     for lo in range(0, max(total, 1), width):
         hi = min(lo + width, total)

@@ -91,6 +91,27 @@ def test_the_g2_level0_counts_its_jacobian_items(proved):
         assert acc["msm.g1"] == {} and acc["msm.g2"]["g2_jacobian"] > 0
 
 
+def test_the_sort_counts_its_pairs_and_key_bits(proved):
+    """`msm.sort` under each MSM counts the pairs of its one radix sort
+    (`sort_items`: W * total) and the key bits the sort walks (`sort_bits`:
+    those of W * (G + 1)(H + 1) - 1)."""
+    from icicle_snark_tpu_torch.ops import msm
+
+    tmp, zkey, vk, wtns, cm, timers, proofs = proved
+    cache = cm.get(zkey)
+    want = {}
+    for name, sizes, c, f in (("msm.g1", cache.g1_sizes, cache.msm_c, cache.msm_pre),
+                              ("msm.g2", [cache.b2_records.shape[0] // cache.msm_pre2],
+                               cache.msm_c2, cache.msm_pre2)):
+        windows = msm.merged_windows(c, f)
+        kr = (len(sizes) + 1) * ((1 << (c - 1)) + 1)
+        want[name] = {"sort_items": windows * sum(sizes) * f,
+                      "sort_bits": (windows * kr - 1).bit_length()}
+    for t in timers:
+        recs = t.records
+        assert {recs[r.parent].name: r.counts for r in recs if r.name == "msm.sort"} == want
+
+
 def test_phases_of_a_timed_prove_are_unchanged(proved):
     *_, timers, proofs = proved
     for t in timers:
@@ -306,4 +327,25 @@ def test_the_g2_level0_launch_is_counted_on_the_card(proved):
                 if r.name == "msm.accumulate" and timer.records[r.parent].name == "msm.g2"]
 
     assert g2_items(t) == g2_items(timers[0])
+    assert open(proof).read() == proofs[0]
+
+
+@pytest.mark.chip
+def test_the_sort_waits_for_nothing_on_the_card(proved):
+    """A timed prove on the card: each `msm.sort` counts what the CPU's
+    counts (K19's pairs and key bits) and no blocking wait, and the proof
+    is the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp, zkey, vk, wtns, cm, timers, proofs = proved
+    cuda = api.CacheManager("cuda")
+    proof, public = str(tmp / "proof_card.json"), str(tmp / "public_card.json")
+    api.groth16_prove(wtns, zkey, proof, public, cuda, deterministic=True)  # warm-up
+    t = pipeline.PhaseTimer("cuda")
+    api.groth16_prove(wtns, zkey, proof, public, cuda, deterministic=True, timer=t)
+
+    def sorts(timer):
+        return [r.counts for r in timer.records if r.name == "msm.sort"]
+
+    assert sorts(t) == sorts(timers[0]) and all(trace.SYNCS not in c for c in sorts(t))
     assert open(proof).read() == proofs[0]
